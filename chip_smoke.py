@@ -7,13 +7,24 @@ Builds the trace-segment kernel from raytracinggrff_tpu_torch/csrc, holds
 it against its plain PyTorch version on the card, drives the production
 emission map (256^2 rays x 5000 steps x 128^3 cube at 75 MHz, nfreq 3,
 cross-sections and S input on) through run_ray_tracing_emission, and checks
-the map. Phases:
+the map; then drives the straight-LOS chain, the gyroresonance map and the
+low-band LOS vs ray-tracing comparison at the defaults of their CLIs.
+Phases:
   1. versions, card, kernel build
   2. kernel vs plain on a non-reflecting scene, every ray within tolerance
   3. kernel vs plain on the canonical scene's first segment (>= 99% of
      rays within tolerance), with both times
   4. the main path at full size from a synthetic MAS model, run twice
   5. the map through the kernel vs through the plain version (n_pix 32)
+  6. resample_mas_los + synthetic_ff at the CLI defaults (128^2 x 400
+     samples; 450 MHz, 4 frequencies)
+  7. the gyroresonance map (mechanism 7, theta_mode 'los', 8-channel
+     records) at the size of phase 4 on a b0_gauss = 50 model, its change
+     from mechanism 5, and kernel vs plain at n_pix 32
+  8. compare_los_raytracing's low band: 30, 60 and 120 MHz, 128^2 pixels,
+     a 256^3 cube at extent 4
+Each path that traces rays runs with the launch count set to 0 just
+before it and checks it against its segment count just after.
 The last lines are one JSON object per kernel, the card's name and power
 limit, and {"ok": true, "device": {...}}. Any failure is a traceback and a
 nonzero exit; without a CUDA device it exits 1 and prints no result.
@@ -223,7 +234,7 @@ def phase_main(out, tmp):
     cfg = RayEmissionConfig(**SLICE)
     npz = Path(tmp) / "ray_tracing_emission.npz"
     n_rec = -(-cfg.n_steps // cfg.record_stride)
-    n_seg = -(-n_rec // cfg.seg_records)
+    n_seg = n_segments(cfg)
     steps_run = 1 + (n_rec - 1) * cfg.record_stride
     for run in (1, 2):
         timings = {}
@@ -256,30 +267,169 @@ def phase_main(out, tmp):
     out.update(launches=launches, wall=wall, timings=timings)
 
 
-def phase_map():
-    from raytracinggrff_tpu_torch.grids import UniformGrid
-    from raytracinggrff_tpu_torch.mas.model import (MASModel,
-                                                    synthetic_mas_model)
+def map_kernel_vs_plain(tag, cubes, device="cuda", **overrides):
+    """The n_pix 32 x 600-step map through the kernel and through the
+    plain version on the same cubes, under the bar of
+    tests/test_streamed_pipeline.py: rel T_b <= 5e-3, |dV/I| <= 1e-4."""
     from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
-                                                   prepare_cubes,
                                                    run_ray_tracing_emission)
-    with tempfile.TemporaryDirectory() as tmp:
-        model = MASModel(synthetic_mas_model(Path(tmp) / "corona"))
-        cubes = prepare_cubes(model, UniformGrid.cube(3.0, 128), 0.0,
-                              verbose=False, device="cuda")
-    cfg = RayEmissionConfig(**dict(SLICE, n_pix=32, n_steps=600, nfreq=2))
-    r_k = run_ray_tracing_emission(cubes=cubes, config=cfg, verbose=False)
+    cfg = RayEmissionConfig(**dict(SLICE, n_pix=32, n_steps=600, nfreq=2,
+                                   **overrides))
+    r_k = run_ray_tracing_emission(cubes=cubes, config=cfg, verbose=False,
+                                   device=device)
     with plain_segments():
         r_p = run_ray_tracing_emission(cubes=cubes, config=cfg,
-                                       verbose=False)
+                                       verbose=False, device=device)
     a, b = r_p["emission_cube"], r_k["emission_cube"]
     lit = (a > 1e4) & (b > 1e4)
     rel = np.abs(b[lit] - a[lit]) / a[lit]
     dv = np.abs(r_k["emission_polVI_cube"][lit]
                 - r_p["emission_polVI_cube"][lit])
-    say(f"[5] map kernel vs plain: {lit.sum()} lit pixels, max rel T_b "
-        f"diff {rel.max():.3g}, max |V/I diff| {dv.max():.3g}")
+    say(f"[{tag}] map kernel vs plain: {lit.sum()} lit pixels, max rel T_b "
+        f"diff {rel.max():.3g}, |V/I diff| max {dv.max():.3g}, p99 "
+        f"{np.percentile(dv, 99):.3g}")
     assert lit.sum() > 20 and rel.max() <= 5e-3 and dv.max() <= 1e-4
+
+
+def phase_map():
+    from raytracinggrff_tpu_torch.grids import UniformGrid
+    from raytracinggrff_tpu_torch.mas.model import (MASModel,
+                                                    synthetic_mas_model)
+    from raytracinggrff_tpu_torch.pipeline import prepare_cubes
+    with tempfile.TemporaryDirectory() as tmp:
+        model = MASModel(synthetic_mas_model(Path(tmp) / "corona"))
+        cubes = prepare_cubes(model, UniformGrid.cube(3.0, 128), 0.0,
+                              verbose=False, device="cuda")
+    map_kernel_vs_plain("5", cubes)
+
+
+def n_segments(cfg):
+    n_rec = -(-cfg.n_steps // cfg.record_stride)
+    return -(-n_rec // cfg.seg_records)
+
+
+def disk_mask(n_pix, x_fov):
+    xs = np.linspace(-x_fov, x_fov, n_pix)
+    return (xs[None, :] ** 2 + xs[:, None] ** 2) < 1.0
+
+
+def check_disk_tb(tag, tb, disk):
+    """Every T_b finite and every on-disk value in 1e4..3e6 K."""
+    assert np.all(np.isfinite(tb)), f"[{tag}] non-finite T_b"
+    vals = tb[disk]
+    pct = np.percentile(vals, [0, 50, 100])
+    say(f"[{tag}] on-disk T_b: {vals.size} values, min/median/max "
+        f"{', '.join('%.4g' % p for p in pct)} K")
+    assert np.all((vals > 1e4) & (vals < 3e6)), f"[{tag}] T_b off range"
+
+
+def phase_los(tmp, n_pix=128, device="cuda"):
+    """The straight-LOS chain at the defaults of cli/resample_los.py and
+    cli/synthetic_ff.py (no rays are traced, so no kernel launches)."""
+    from raytracinggrff_tpu_torch.mas.model import synthetic_mas_model
+    from raytracinggrff_tpu_torch.pipeline import (resample_mas_los,
+                                                   synthetic_ff)
+    model = synthetic_mas_model(Path(tmp) / "corona_los")
+    t0 = time.perf_counter()
+    los = resample_mas_los(model, n_pix=n_pix, x_range=(-1.44, 1.44),
+                           y_range=(-1.44, 1.44), n_z=400, dz0=3e-4,
+                           phi0_offset=24.0, verbose=False, device=device)
+    t1 = time.perf_counter()
+    em = synthetic_ff(los, 450e6, 4, 0.1, verbose=False, device=device)
+    t2 = time.perf_counter()
+    say(f"[6] resample_mas_los {n_pix}^2 x 400 ({n_pix ** 2 * 400} samples "
+        f"per variable): {t1 - t0:.3f} s; synthetic_ff 4 frequencies from "
+        f"450 MHz: {t2 - t1:.3f} s")
+    tb = em["emission_cube"]
+    assert tb.shape == (n_pix, n_pix, 4), tb.shape
+    check_disk_tb("6", tb, disk_mask(n_pix, 1.44)[:, :, None].repeat(4, 2))
+    return {"resample_s": t1 - t0, "transfer_s": t2 - t1}
+
+
+def phase_gyro(tmp, n_pix=256, n_steps=5000, grid_n=128, device="cuda"):
+    """The gyroresonance map at full width on a b0_gauss = 50 model, its
+    change from mechanism 5 on the same cubes, and the kernel vs the plain
+    version at n_pix 32 and 600 steps."""
+    from raytracinggrff_tpu_torch.grids import UniformGrid
+    from raytracinggrff_tpu_torch.mas.model import (MASModel,
+                                                    synthetic_mas_model)
+    from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
+    from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
+                                                   prepare_cubes,
+                                                   run_ray_tracing_emission)
+    model = synthetic_mas_model(Path(tmp) / "corona_gr", b0_gauss=50.0)
+    common = dict(SLICE, n_pix=n_pix, n_steps=n_steps, grid_n=grid_n,
+                  theta_mode="los")
+    cfg = RayEmissionConfig(**dict(common, mechanism=7))
+    timings = {}
+    trace_segment.launches = 0
+    t0 = time.perf_counter()
+    res = run_ray_tracing_emission(model_path=model, config=cfg,
+                                   verbose=False, device=device,
+                                   timings=timings)
+    wall = time.perf_counter() - t0
+    launches = trace_segment.launches
+    say(f"[7] gyroresonance map {n_pix}^2 x {n_steps} steps x {grid_n}^3: "
+        f"wall {wall:.3f} s; resample {timings['resample']:.4f} s, trace "
+        f"{timings['trace']:.4f} s, transfer {timings['transfer']:.4f} s, "
+        f"finish {timings['finish']:.4f} s; kernel launches {launches} = "
+        f"segments {n_segments(cfg)}")
+    assert launches == n_segments(cfg) == timings["segments"], launches
+    tb7 = res["emission_cube"]
+    disk = disk_mask(n_pix, cfg.x_fov)
+    check_disk_tb("7", tb7, disk[:, :, None].repeat(cfg.nfreq, 2))
+    cubes = prepare_cubes(MASModel(model), UniformGrid.cube(3.0, grid_n),
+                          0.0, verbose=False, keep_bvec=True, device=device)
+    tb5 = run_ray_tracing_emission(
+        cubes=cubes, config=RayEmissionConfig(**dict(common, mechanism=5)),
+        verbose=False, device=device)["emission_cube"]
+    changed = np.abs(tb7[disk] / tb5[disk] - 1.0) > 0.01
+    say(f"[7] {changed.mean():.5f} of {changed.size} on-disk values differ "
+        f"by more than 1% from mechanism 5")
+    assert changed.mean() > 0.5, changed.mean()
+    map_kernel_vs_plain("7", cubes, device=device, grid_n=grid_n,
+                        mechanism=7, theta_mode="los")
+    return {"wall": wall, "timings": timings, "changed": changed.mean()}
+
+
+def phase_compare(tmp, n_pix=128, grid_n=256, freqs=(30e6, 60e6, 120e6),
+                  device="cuda"):
+    """compare_los_raytracing's per-frequency body at its low-band
+    defaults: x_fov 2.8, a grid_n^3 cube at extent 4, z_observer 4."""
+    from raytracinggrff_tpu_torch.cli.compare_los_raytracing import (
+        compare_frequency, frequency_scaled_params)
+    from raytracinggrff_tpu_torch.mas.model import synthetic_mas_model
+    from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
+    from raytracinggrff_tpu_torch.pipeline import RayEmissionConfig
+    model = synthetic_mas_model(Path(tmp) / "corona_cmp")
+    disk = disk_mask(n_pix, 2.8)
+    out = {}
+    for freq in freqs:
+        p = frequency_scaled_params(freq)
+        cfg = RayEmissionConfig(n_steps=p["n_steps"],
+                                record_stride=p["record_stride"])
+        timings = {}
+        trace_segment.launches = 0
+        t0 = time.perf_counter()
+        ray, los = compare_frequency(model, freq, n_pix=n_pix, x_fov=2.8,
+                                     grid_n=grid_n, grid_extent=4.0,
+                                     z_observer=4.0, verbose=False,
+                                     device=device, timings=timings)
+        wall = time.perf_counter() - t0
+        launches = trace_segment.launches
+        a = ray["emission_cube"][:, :, 0]
+        b = los["emission_cube"][:, :, 0]
+        assert np.all(np.isfinite(a)) and np.all(np.isfinite(b))
+        assert launches == n_segments(cfg), (launches, n_segments(cfg))
+        ratio = np.median(a[disk]) / np.median(b[disk])
+        say(f"[8] {freq / 1e6:.0f} MHz ({p['n_steps']} steps, stride "
+            f"{p['record_stride']}, n_z {p['n_z']}): {wall:.3f} s for both "
+            f"maps; ray stages resample {timings['resample']:.4f}, trace "
+            f"{timings['trace']:.4f}, transfer {timings['transfer']:.4f} s; "
+            f"kernel launches {launches} = segments {n_segments(cfg)}; "
+            f"on-disk median T_b ray/LOS {ratio:.4f}")
+        out[freq] = {"wall": wall, "ratio": ratio}
+    return out
 
 
 def main():
@@ -297,6 +447,10 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             phase_main(out, tmp)
         phase_map()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_los(tmp)
+            phase_gyro(tmp)
+            phase_compare(tmp)
     say(f"total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": [{
         "name": "trace_segment", "route": "cuda", "source": KERNEL_SOURCE,

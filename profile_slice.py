@@ -5,8 +5,8 @@ pass/fail checks of chip_smoke.py.
     python3 profile_slice.py          # from the repository root, on a card
 
   1. fmad: the canonical first segment (65,536 rays x 631 steps) through
-     the kernel built with nvcc's default FMA contraction and with
-     -fmad=false: ptxas registers and spills of each build, the median of
+     the kernel built with -fmad=false (the default build) and with nvcc's
+     FMA contraction: ptxas registers and spills of each build, the median of
      6 alternated timings of 10 launches each, and the agreement of each
      build with the plain version.
   2. spread: the production slice of chip_smoke.py (256^2 rays x 5000
@@ -16,6 +16,13 @@ pass/fail checks of chip_smoke.py.
      device was busy (the union of its kernel and copy intervals) over the
      run's wall time, the number of device kernels and the kernels with
      the most device time.
+  4. floor: the noise floor of the theta_mode='los' map that chip_smoke.py
+     phase 7 holds to |dV/I| <= 1e-4 (n_pix 32 x 600 steps on a b0_gauss =
+     50 model's 128^3 cubes, nfreq 2), for mechanism 5 and for mechanism 7
+     (gyroresonance). Against the plain map: the plain map on cubes
+     multiplied by (1 + 1e-7 N(0,1)), and the map through each build of
+     phase 1. For each: lit values, max rel T_b, max and 99th percentile
+     of |dV/I| and the count above 1e-4.
 The card's name and power limit are printed first and last. Without a
 CUDA device it exits 1.
 """
@@ -33,7 +40,7 @@ import numpy as np
 import torch
 
 from chip_smoke import (SLICE, canonical_scene, compare_records, cuda_ms,
-                        initial_state, say, smi_line)
+                        initial_state, plain_segments, say, smi_line)
 
 STAGES = ("wall", "resample", "trace", "transfer", "finish")
 
@@ -50,7 +57,22 @@ def kernel_library(lib):
         ts._library = saved
 
 
-def phase_fmad():
+def build_libraries():
+    """The kernel library with nvcc's FMA contraction ("fma") and as
+    NVCC_FLAGS build it ("nofma", -fmad=false)."""
+    from raytracinggrff_tpu_torch.ops import trace_segment as ts
+    libs = {}
+    fma_flags = tuple(f for f in ts.NVCC_FLAGS if f != "-fmad=false")
+    for name, flags in (("fma", fma_flags), ("nofma", ts.NVCC_FLAGS)):
+        path, log = ts.build_library(flags)
+        libs[name] = ts.load_library(path)
+        for line in log.splitlines():
+            if "Compiling" in line or "spill" in line or "registers" in line:
+                say(f"[fmad] {name} ptxas: {line.strip()}")
+    return libs
+
+
+def phase_fmad(libs):
     from raytracinggrff_tpu_torch.ops import trace_segment as ts
     from raytracinggrff_tpu_torch.tracer_segments import prepare_trace_inputs
     grid, f, start, kdir = canonical_scene()
@@ -58,14 +80,6 @@ def phase_fmad():
                                         grid)
     state = initial_state(tcube, grid, 75e6, start, kdir)
     args = (tcube, scube, state, grid, 6e-3, 1, 10, 64)
-    libs = {}
-    for name, flags in (("fma", ts.NVCC_FLAGS),
-                        ("nofma", ts.NVCC_FLAGS + ("-fmad=false",))):
-        path, log = ts.build_library(flags)
-        libs[name] = ts.load_library(path)
-        for line in log.splitlines():
-            if "Compiling" in line or "spill" in line or "registers" in line:
-                say(f"[fmad] {name} ptxas: {line.strip()}")
     times = {name: [] for name in libs}
     for _ in range(6):
         for name, lib in libs.items():
@@ -142,6 +156,60 @@ def phase_profile(model, cfg):
         say(f"[profile] {total / 1e3:10.3f} ms x {count:6d}  {name[:90]}")
 
 
+def map_stats(tag, res, ref):
+    """How far the map `res` is from `ref`, over the values lit in both."""
+    a, b = ref["emission_cube"], res["emission_cube"]
+    lit = (a > 1e4) & (b > 1e4)
+    rel = np.abs(b[lit] - a[lit]) / a[lit]
+    dv = np.abs(res["emission_polVI_cube"][lit]
+                - ref["emission_polVI_cube"][lit])
+    say(f"[floor] {tag}: {lit.sum()} lit values; max rel T_b "
+        f"{rel.max():.3g}; |dV/I| max {dv.max():.3g}, p99 "
+        f"{np.percentile(dv, 99):.3g}, {(dv > 1e-4).sum()} above 1e-4")
+
+
+def jittered(cubes, seed=0):
+    """Each cube multiplied by (1 + 1e-7 N(0,1)), drawn in float64."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def jitter(v):
+        n = torch.randn(v.shape, generator=gen, device=v.device,
+                        dtype=torch.float64)
+        return (v.double() * (1.0 + 1e-7 * n)).float()
+    return {k: tuple(jitter(c) for c in v) if k == "bvec" else jitter(v)
+            for k, v in cubes.items()}
+
+
+def phase_floor(libs):
+    from raytracinggrff_tpu_torch.grids import UniformGrid
+    from raytracinggrff_tpu_torch.mas.model import (MASModel,
+                                                    synthetic_mas_model)
+    from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
+                                                   prepare_cubes,
+                                                   run_ray_tracing_emission)
+    with tempfile.TemporaryDirectory() as tmp:
+        model = MASModel(synthetic_mas_model(Path(tmp) / "corona_gr",
+                                             b0_gauss=50.0))
+        cubes = prepare_cubes(model, UniformGrid.cube(3.0, 128), 0.0,
+                              verbose=False, keep_bvec=True, device="cuda")
+    noisy = jittered(cubes)
+    for mech in (5, 7):
+        cfg = RayEmissionConfig(**dict(SLICE, n_pix=32, n_steps=600, nfreq=2,
+                                       mechanism=mech, theta_mode="los"))
+
+        def run(c):
+            return run_ray_tracing_emission(cubes=c, config=cfg,
+                                            verbose=False, device="cuda")
+        with plain_segments():
+            ref = run(cubes)
+            map_stats(f"mechanism {mech}, plain on jittered cubes vs plain",
+                      run(noisy), ref)
+        for name, lib in libs.items():
+            with kernel_library(lib):
+                map_stats(f"mechanism {mech}, kernel {name} vs plain",
+                          run(cubes), ref)
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device; nothing run", file=sys.stderr)
@@ -151,12 +219,14 @@ def main():
     say(f"nvidia-smi: {smi_line()}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}")
     with torch.inference_mode():
-        phase_fmad()
+        libs = build_libraries()
+        phase_fmad(libs)
         with tempfile.TemporaryDirectory() as tmp:
             model = synthetic_mas_model(Path(tmp) / "corona", timestep=2)
             cfg = RayEmissionConfig(**SLICE)
             phase_spread(model, cfg)
             phase_profile(model, cfg)
+        phase_floor(libs)
     say(f"nvidia-smi: {smi_line()}")
     return 0
 

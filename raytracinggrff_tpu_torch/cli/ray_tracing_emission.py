@@ -4,7 +4,8 @@ The flags of the JAX package's rgrff-ray-emission (reference main,
 script/resample_with_ray_tracing.py:652-730). --device selects the torch
 device (default cuda); --workers, --grff-lib, --grff-backend,
 --raytrace-device and --no-fallback are accepted for compatibility and do
-nothing. Plots are not ported yet, so only the .npz is written.
+nothing. Besides the .npz it writes the map and center-pixel pngs unless
+--no-plots is given.
 
     python -m raytracinggrff_tpu_torch.cli.ray_tracing_emission -m ./corona
 """
@@ -59,8 +60,7 @@ def build_parser():
     p.add_argument("--perturb-ratio", type=float, default=2.0,
                    help="Cross-section perturbation ratio (default: 2)")
     p.add_argument("--consider-beam", action="store_true",
-                   help="Convolve emission map plot with a Gaussian beam "
-                        "(not ported yet)")
+                   help="Convolve emission map plot with a Gaussian beam")
     p.add_argument("--beam-fwhm", type=float, default=0.2,
                    help="Beam FWHM in R_sun (default: 0.2)")
     p.add_argument("--phi0-offset", type=float, default=0.0,
@@ -68,7 +68,7 @@ def build_parser():
     p.add_argument("--no-fallback", action="store_true",
                    help="(compat) no-op")
     p.add_argument("--no-plots", action="store_true",
-                   help="Do not save plots (plots are not ported yet)")
+                   help="Do not save plots")
     p.add_argument("--quiet", "-q", action="store_true", help="Less output")
     p.add_argument("--nfreq", type=int, default=1,
                    help="Number of GRFF frequency channels (default: 1)")
@@ -76,8 +76,8 @@ def build_parser():
                    help="log10 step between channels (default: 0)")
     p.add_argument("--mechanism", type=int, default=1 + 4,
                    help="Emission mechanism flags (Parms[6] contract): "
-                        "1 free-free, +4 neutral-H (default: 5); +2 "
-                        "gyroresonance is not ported yet")
+                        "1 free-free, +2 gyroresonance, +4 neutral-H "
+                        "(default: 5)")
     p.add_argument("--theta-deg", type=float, default=90.0,
                    help="Angle between B and the LOS in degrees "
                         "(Parms[4] contract; default: 90)")
@@ -94,8 +94,8 @@ def build_parser():
     p.add_argument("--timestep", type=int, default=0,
                    help="Timestep index for multi-timestep model dirs")
     p.add_argument("--patch-nan", action="store_true",
-                   help="Fill failed pixels with nearest-finite neighbor "
-                        "means (not ported yet)")
+                   help="Fill failed (non-finite) pixels with "
+                        "nearest-finite neighbor means")
     return p
 
 
@@ -111,11 +111,10 @@ def main(argv=None):
         perturb_ratio=args.perturb_ratio, phi0_offset=args.phi0_offset,
         mechanism=args.mechanism, theta_deg=args.theta_deg,
         theta_mode=args.theta_mode, gaunt=args.gaunt)
-    if not args.no_plots and not args.quiet:
-        print("Plots are not ported yet: writing the .npz only.")
     run_ray_tracing_emission(
         model_path=args.model_path, config=cfg, out_path=args.out_path,
-        verbose=not args.quiet, consider_beam=args.consider_beam,
+        save_plots=not args.no_plots, verbose=not args.quiet,
+        consider_beam=args.consider_beam,
         beam_fwhm=args.beam_fwhm, patch_nan=args.patch_nan,
         timestep=args.timestep, device=args.device)
 

@@ -3,8 +3,10 @@
 The formulas of raytracinggrff_tpu/grff/physics.py, which documents their
 derivation: Appleton-Hartree refractive index per mode sigma (+1 O, -1 X),
 free-free opacity with the Dulk 1985 Coulomb logarithm or the exact
-classical/Born Gaunt factor, and the Saha neutral-hydrogen term (mechanism
-bit 4). Gyroresonance and the DEM moments are not ported yet.
+classical/Born Gaunt factor, the Saha neutral-hydrogen term (mechanism
+bit 4), thermal gyroresonance with the exact polarization coupling
+(mechanism bit 2) and the free-free moments of a DEM(T). The functions
+take tensors of any float dtype; the transfer runs them in float32.
 """
 
 from __future__ import annotations
@@ -102,6 +104,105 @@ def neutral_hydrogen_kappa(ne, te, b, nu, theta_rad, sigma):
     (mechanism bit 4)."""
     nu_p_sq, _, n_sigma, eff_nu_sq = _mode_terms(ne, b, nu, theta_rad, sigma)
     return _neutral_term(ne, te, nu_p_sq, n_sigma, eff_nu_sq)
+
+
+def gyro_polarization_coupling(X, Y, theta_rad, sigma):
+    """Exact magnetoionic polarization coupling F_sigma(theta) of thermal
+    gyroresonance: the projection of the mode's cold-plasma polarization
+    onto the electron-sense rotation about B, |e_x - i e_y|^2 / ||e||^2.
+    With the Stix S, D, P, A = n^2_sigma - S and d = P - n^2 sin^2:
+
+        F = (A + D)^2 d^2 / (A^2 d^2 + D^2 d^2 + A^2 n^4 cos^2 sin^2),
+
+    which tends to the quasi-longitudinal (1 - sigma|cos|)^2 / 2 and keeps
+    the X/O asymmetry near 90 deg (derivation and limits in
+    raytracinggrff_tpu/grff/physics.py)."""
+    n2 = refractive_index_sq(X, Y, theta_rad, sigma)
+    one_m_y2 = 1.0 - Y * Y
+    safe = torch.where(torch.abs(one_m_y2) > 1e-12, one_m_y2,
+                       torch.where(one_m_y2 >= 0, 1e-12, -1e-12))
+    s_stix = 1.0 - X / safe
+    d_stix = -X * Y / safe
+    p_stix = 1.0 - X
+    st = torch.sin(theta_rad)
+    ct = torch.cos(theta_rad)
+    a = n2 - s_stix
+    d_l = p_stix - n2 * st * st
+    num = (a + d_stix) ** 2 * d_l * d_l
+    den = ((a * a + d_stix * d_stix) * d_l * d_l
+           + a * a * (n2 * n2) * (ct * st) ** 2)
+    return num / torch.clamp(den, min=1e-38)
+
+
+def gyroresonance_kappa(ne, te, b, nu, theta_rad, sigma, s_max=30):
+    """Thermal gyroresonance opacity summed over harmonics s = 2..s_max
+    [cm^-1] (mechanism bit 2; Parms[7] caps s):
+
+        kappa_s = (pi^2/(2c)) (nu_p^2/nu) F_sigma (s^2/s!)
+                  (s^2 beta^2 sin^2/2)^(s-1) s nu_B
+                  Gauss(nu - s nu_B; s nu_B beta max(|cos|, 0.01)),
+
+    beta^2 = kT/(m c^2). The harmonic terms are taken in log space with
+    lgamma so s! stays in float32 range, and summed over a leading s axis
+    in one pass, so the number of launches does not grow with s_max."""
+    nu_p_sq = (FPE_COEF ** 2) * ne
+    nu_b = torch.clamp(FB_COEF * b, min=1.0)
+    beta2 = KB_CGS * te / (M_E_G * C_CGS * C_CGS)
+    beta = torch.sqrt(beta2)
+    st2 = torch.sin(theta_rad) ** 2
+    act = torch.clamp(torch.abs(torch.cos(theta_rad)), min=0.01)
+    f_sigma = gyro_polarization_coupling(nu_p_sq / (nu * nu), nu_b / nu,
+                                         theta_rad, sigma)
+    pref = (math.pi ** 2 / (2.0 * C_CGS)) * nu_p_sq / nu * f_sigma
+    log_arg = torch.log(torch.clamp(beta2 * st2 / 2.0, min=1e-38))
+
+    harmonics = range(2, int(s_max) + 1)
+    lead = (-1,) + (1,) * max(pref.dim(), log_arg.dim())
+
+    def per_s(values):
+        return torch.tensor(values, dtype=pref.dtype,
+                            device=pref.device).reshape(lead)
+
+    s = per_s([float(k) for k in harmonics])
+    log_s2 = per_s([2.0 * math.log(k) for k in harmonics])
+    lgam = per_s([math.lgamma(k + 1) for k in harmonics])
+    width = s * nu_b * beta * act
+    log_term = log_s2 + (s - 1.0) * (log_arg + log_s2) - lgam
+    gauss = (torch.exp(-((nu - s * nu_b) ** 2) / (2.0 * width * width))
+             / (math.sqrt(2.0 * math.pi) * width))
+    total = torch.sum((s * nu_b) * torch.exp(log_term) * gauss, dim=0)
+    return pref * total
+
+
+def trapezoid_weights(t_grid):
+    """Trapezoid quadrature weights of an ascending 1-D grid tensor:
+    w_0 = (T1-T0)/2, w_j = (T_{j+1}-T_{j-1})/2, w_last likewise."""
+    dt = t_grid[1:] - t_grid[:-1]
+    return torch.cat([dt[:1] / 2.0, (dt[1:] + dt[:-1]) / 2.0,
+                      dt[-1:] / 2.0])
+
+
+def dem_freefree_moments(t_grid, dem, nu, gaunt="dulk"):
+    """Free-free kernel moments of a per-voxel DEM(T) [cm^-5 K^-1, the
+    voxel's path length folded in]:
+
+        M_k(nu) = int DEM g(T, nu) T^{-3/2} dT,
+        T_eff(nu) = int DEM g T^{-1/2} dT / M_k(nu)   (trapezoid),
+
+    so tau_sigma = coef M_k / (n_sigma eff_nu^2) and the source
+    temperature is T_eff. t_grid (NT,), dem (NT, Nz), nu (Nf,) tensors;
+    returns (m_k, t_eff), each (Nz, Nf). g is the Dulk lnLambda or, with
+    gaunt='exact', the classical/Born Gaunt factor, as in freefree_kappa."""
+    t = t_grid[:, None]
+    nu2 = nu[None, :]
+    g = exact_gaunt(t, nu2) if gaunt == "exact" else coulomb_log(t, nu2)
+    w = trapezoid_weights(t_grid)[:, None]
+    a_k = (dem * (w * t ** -1.5)).T
+    a_j = (dem * (w * t ** -0.5)).T
+    m_k = torch.matmul(a_k, g)
+    m_j = torch.matmul(a_j, g)
+    floor = 1e-300 if m_k.dtype == torch.float64 else 1e-38
+    return m_k, m_j / torch.clamp(m_k, min=floor)
 
 
 def freefree_kappa(ne, te, b, nu, theta_rad, sigma, include_neutrals=True,

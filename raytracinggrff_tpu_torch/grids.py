@@ -1,4 +1,5 @@
-"""Uniform-grid specification of the Cartesian cube.
+"""Uniform-grid specification of the Cartesian cube, and the z-grids of
+the straight line of sight.
 
 Samplers take a `UniformGrid` (origin, spacing, shape as Python numbers)
 rather than coordinate arrays; validation happens once, on the host
@@ -74,3 +75,23 @@ class UniformGrid:
         ys = self.y0 + self.dy * np.arange(self.ny)
         zs = self.z0 + self.dz * np.arange(self.nz)
         return xs, ys, zs
+
+
+def variable_z_grid(n_z: int, dz0: float) -> tuple[np.ndarray, np.ndarray]:
+    """Irregular LOS z-grid concentrating resolution near the surface:
+    dz_i = dz0 * (1 + (5 i / N_z)^2.5), z = cumsum(dz)
+    (script/resampling_MAS_LOS.py:141-146). Returns (z in R_sun, dz)."""
+    if dz0 > 1.0:
+        raise ValueError(
+            f"dz0={dz0:g} is extremely large in R_sun units. "
+            "Did you mean something like 7e-4 instead of 7e4?"
+        )
+    idx = np.arange(n_z)
+    dz = dz0 * (1.0 + (5.0 * idx / n_z) ** 2.5)
+    return np.cumsum(dz), dz
+
+
+def linear_z_grid(n_z: int, z_range=(0.0, 4.0)) -> tuple[np.ndarray, np.ndarray]:
+    """Linear LOS z-grid (script/resampling_MAS_LOS.py:147-154)."""
+    z = np.linspace(z_range[0], z_range[1], n_z)
+    return z, np.abs(np.diff(z, prepend=z[0]))

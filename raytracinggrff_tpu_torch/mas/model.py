@@ -88,6 +88,26 @@ class MASVariable:
         return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
                      for a in (self.data, self.phi, self.theta, self.r))
 
+    def sample_sph(self, r_q, colat_q, phi_q, device="cuda"):
+        """Trilinear sample at spherical coordinates (arrays or tensors,
+        broadcast to one shape; r in R_sun, angles in radians) as a float32
+        tensor on `device`: phi periodic, theta clamped to the mesh, r
+        outside the mesh -> NaN (the reference masks r < R_MIN before
+        sampling anyway, build_rays.py:96)."""
+        def q(a):
+            return torch.as_tensor(a, dtype=torch.float32, device=device)
+        return _interp_sph(*self.device_arrays(device), q(r_q), q(colat_q),
+                           q(phi_q))
+
+    def sample_at_coords(self, lon_deg, lat_deg, r_rsun, device="cuda"):
+        """psipy-compatible signature: longitude and latitude in degrees,
+        radius in R_sun (script/resampling_MAS_LOS.py:254-263). The unit
+        conversion the reference applies with astropy is already in
+        self.data."""
+        lon = np.deg2rad(np.asarray(lon_deg))
+        colat = np.pi / 2 - np.deg2rad(np.asarray(lat_deg))
+        return self.sample_sph(r_rsun, colat, lon, device=device)
+
 
 def _axis_locate(ax, q):
     """Cell index and clamped fraction on a 1D ascending nonuniform axis."""
@@ -100,6 +120,7 @@ def _axis_locate(ax, q):
 def _interp_sph(data, phi, theta, r, r_q, colat_q, phi_q):
     """Trilinear sample of data (nphi+1, ntheta, nr) at spherical query
     tensors of any shape; phi is periodic, r outside the mesh gives NaN."""
+    r_q, colat_q, phi_q = torch.broadcast_tensors(r_q, colat_q, phi_q)
     shape = r_q.shape
     phi_q = torch.remainder(phi_q, 2 * math.pi).reshape(-1)
     r_q = r_q.reshape(-1)

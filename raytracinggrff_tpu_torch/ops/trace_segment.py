@@ -42,9 +42,13 @@ from .trilinear import trilinear_packed
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+# -fmad=false keeps nvcc from contracting a*b+c, so the kernel rounds as
+# the plain version's separate torch ops do and its records equal them
+# bit for bit. Gyroresonance maps need that: their point-sampled harmonic
+# layers move V/I by 2e-4 under 1e-7 relative input noise (PERF.md).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-Xptxas", "-v", "-fmad=false")
 STATE_ROWS = 7
 RECORD_ROWS = 8
 

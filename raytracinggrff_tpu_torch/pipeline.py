@@ -1,14 +1,18 @@
-"""The ray-traced emission map: resample the MAS model to cubes on the
-device, trace N_pix^2 refracting rays segment by segment with the
-trace-segment kernel, fold every record into the two-mode transfer carry,
-and convert the fluxes to brightness temperature
-(script/resample_with_ray_tracing.py:154-549).
+"""The imaging pipelines of raytracinggrff_tpu/pipeline.py on torch:
 
-`run_ray_tracing_emission` keeps the result keys and the .npz output of
-raytracinggrff_tpu/pipeline.py. It runs on `device` ("cuda" by default);
-a CPU run names device="cpu". Not ported yet: plots, NaN patching, beam
-convolution, the center-pixel LOS, meshes, the straight-LOS pipeline and
-s_mode='per_step'.
+  * run_ray_tracing_emission: resample the MAS model to cubes on the
+    device, trace N_pix^2 refracting rays segment by segment with the
+    trace-segment kernel, fold every record into the two-mode transfer
+    carry, and convert the fluxes to brightness temperature
+    (script/resample_with_ray_tracing.py:154-549);
+  * resample_mas_los: the straight-LOS sampling baseline
+    (script/resampling_MAS_LOS.py:100-309);
+  * synthetic_ff: the GRFF transfer of LOS data to a map
+    (script/synthetic_FF_map_single_thread.py:108-312).
+
+They keep the result keys and the .npz outputs of the JAX package and run
+on `device` ("cuda" by default); a CPU run names device="cpu". Not ported
+yet: meshes and s_mode='per_step'.
 """
 
 from __future__ import annotations
@@ -16,16 +20,21 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from .constants import FPE_COEF, R_SUN_CM, R_SUN_M
-from .grids import UniformGrid
-from .grff.transfer import (log_spaced_freqs, make_voxel_update,
-                            tb_from_sfu, transfer_carry_init)
+from .coords import image_xyz_to_mas_sph
+from .grids import UniformGrid, linear_z_grid, variable_z_grid
+from .grff.transfer import (get_mw_slice, log_spaced_freqs,
+                            make_voxel_update, tb_from_sfu,
+                            transfer_carry_init)
 from .mas.model import MASModel, resample_var_to_cube
+from .sampler import LosSamples, record_step, valid_and_ds
 from .tracer_segments import iter_trace_segments
+from .utils.plotting import inspection_pixel_index
 
 
 # ---------------------------------------------------------------------------
@@ -221,17 +230,19 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
     prepare_cubes or cubes_from_numpy) must be given. Returns the
     reference's result dict: emission_cube (N, N, Nf) T_b in K,
     emission_polVI_cube, frequencies_Hz, x_coords/y_coords in meters
-    (resample_with_ray_tracing.py:533-541), and "_sampled" = None. A dict
-    passed as `timings` receives seconds per stage (resample, trace,
-    transfer, finish) and the segment count.
+    (resample_with_ray_tracing.py:533-541), and "_sampled": with
+    save_plots a one-column LosSamples of the inspection pixel's ray,
+    else None. save_plots (with out_path) writes the map and center-pixel
+    pngs; consider_beam/beam_fwhm convolve the map plot with a Gaussian
+    beam (resample_with_ray_tracing.py:618-639); patch_nan fills the
+    pixels that came out non-finite with nearest-finite-neighbour means
+    (raytracingGRFF/util.py:6-77). A dict passed as `timings` receives
+    seconds per stage (resample, trace, transfer, finish) and the segment
+    count.
     """
-    for name, asked in (("save_plots", save_plots), ("mesh", mesh),
-                        ("consider_beam", consider_beam),
-                        ("patch_nan", patch_nan)):
-        if asked:
-            raise NotImplementedError(
-                f"{name} is not ported yet (plots, the center-pixel LOS, "
-                f"beam, NaN patching and meshes come in later slices)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh is not ported yet: the port runs on one device")
     cfg = config or RayEmissionConfig()
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
@@ -274,9 +285,9 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
     pixel_size_cm = (2 * cfg.x_fov) / cfg.n_pix * R_SUN_CM
     pixel_area_cm2 = pixel_size_cm * pixel_size_cm
 
-    flux_o, flux_x, n_segments = _streamed_trace_transfer(
+    flux_o, flux_x, n_segments, center_los = _streamed_trace_transfer(
         cubes, grid, cfg, start, kdir, frequencies_hz, pixel_area_cm2,
-        device, clock)
+        device, clock, collect_center=save_plots)
 
     t0 = clock.mark()
     freqs = torch.as_tensor(frequencies_hz, dtype=torch.float32,
@@ -284,11 +295,21 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
     intensity = flux_o + flux_x
     pol_vi = (flux_o - flux_x) / (intensity + 1e-30)
     tb = tb_from_sfu(intensity, freqs, pixel_area_cm2)
+    failed = ~torch.isfinite(tb)        # before the sanitisation
     tb = torch.nan_to_num(tb, nan=0.0, posinf=0.0, neginf=0.0)
     shape = (cfg.n_pix, cfg.n_pix, cfg.nfreq)
     emission_cube = tb.cpu().numpy().astype(np.float64).reshape(shape)
     pol_cube = pol_vi.cpu().numpy().astype(np.float64).reshape(shape)
+    failed = failed.cpu().numpy().reshape(shape)
     clock.add("finish", t0, clock.mark())
+    if patch_nan:
+        # only the non-finite pixels: exact zeros can be far-off-limb
+        # lines of sight that never meet the cube
+        from .utils.nanpatch import patch_nan_emission_map
+        emission_cube[failed] = np.nan
+        emission_cube = patch_nan_emission_map(emission_cube)
+        pol_cube[failed] = np.nan
+        pol_cube = patch_nan_emission_map(pol_cube)
 
     result = {
         "emission_cube": emission_cube,
@@ -300,21 +321,48 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
     if out_path:
         np.savez_compressed(out_path, **result)
         log(f"Saved {out_path}")
-    result["_sampled"] = None
+    result["_sampled"] = center_los
+    if save_plots and out_path:
+        from .utils.plotting import save_center_pixel_plot, save_emission_plot
+        save_emission_plot(result, cfg.n_pix, cfg.x_fov, out_path,
+                           consider_beam=consider_beam, beam_fwhm=beam_fwhm,
+                           device=device)
+        save_center_pixel_plot(center_los, cfg.n_pix, out_path, p_index=0)
     if timings is not None:
         timings.update(clock.totals(), segments=n_segments)
     return result
 
 
+def _center_los(rows, start, with_cos):
+    """A one-column LosSamples of one ray from its (n_records, 8) record
+    rows, with the validity and ds of the streamed transfer; cos_theta
+    (row 7) only with_cos."""
+    rows = rows[:, :, None]
+    pos = rows[:, 0:3].transpose(1, 2)
+    valid, ds = valid_and_ds(
+        pos, rows[:, 3], torch.as_tensor(start, device=rows.device)[None],
+        usable=torch.isfinite(rows[:, 7]) if with_cos else None)
+    return LosSamples(ne=rows[:, 4], te=rows[:, 5], b=rows[:, 6], ds=ds,
+                      valid_mask=valid, s=rows[:, 3],
+                      cos_theta=rows[:, 7] if with_cos else None)
+
+
 def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
-                             pixel_area_cm2, device, clock):
+                             pixel_area_cm2, device, clock,
+                             collect_center=False):
     """Stream trace segments into the transfer carry on the device.
     Per record (pipeline.py:377-396 of the JAX package): a record is valid
     where its position and S are finite and S > 0; ds is the distance from
     the ray's last valid position in cm; with s_input_on the per-voxel
     source area is S times the pixel area; with theta_mode='los' row 7's
-    cos(theta) sets the per-voxel theta. Returns (flux_o, flux_x) as
-    (n_rays, Nf) float32 tensors and the number of segments."""
+    cos(theta) sets the per-voxel theta, and a record without one (the
+    step at which a ray leaving the cube froze: k is NaN, S not yet 0) is
+    invalid too. The JAX pipeline keeps that record, and its NaN angle
+    makes the voxel evanescent in both modes, which zeroes the pixel.
+    Returns (flux_o, flux_x) as
+    (n_rays, Nf) float32 tensors, the number of segments and, with
+    collect_center, a one-column LosSamples of the reference's inspection
+    pixel (resample_with_ray_tracing.py:552-604), else None."""
     freqs = torch.as_tensor(frequencies_hz, dtype=torch.float32,
                             device=device)
     update = make_voxel_update(freqs, pixel_area_cm2, cfg.theta_deg,
@@ -326,6 +374,8 @@ def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
 
     carry = transfer_carry_init(start.shape[0], freqs.shape[0], device)
     prev = torch.as_tensor(start, device=device)
+    p_center = inspection_pixel_index(cfg.n_pix)
+    center_rows = []
     n_segments = 0
     segments = iter_trace_segments(
         cubes["omega_pe"], cubes["ne"], cubes["te"], cubes["b"], grid,
@@ -341,19 +391,160 @@ def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
         if recs is None:
             break
         n_segments += 1
+        if collect_center:
+            # a copy, so the segment's record block is not kept alive
+            center_rows.append(recs[:, :, p_center].clone())
         for rec in recs:
-            pos = rec[0:3].T
             s = rec[3]
-            valid = (torch.all(torch.isfinite(pos), dim=1)
-                     & torch.isfinite(s) & (s > 0))
-            psafe = torch.where(valid[:, None], pos, prev)
-            dsv = torch.sqrt(torch.sum((psafe - prev) ** 2, dim=1)) * scale
-            dsv = torch.where(valid, dsv, 0.0)
+            valid, dsv, prev = record_step(
+                rec[0:3].T, s, prev, scale,
+                torch.isfinite(rec[7]) if theta_los else None)
             sarea = s * area32 if s_on else torch.zeros_like(s)
             theta_k = (torch.arccos(torch.clamp(rec[7], -1.0, 1.0))
                        if theta_los else None)
             carry = update(carry, dsv, rec[5], rec[4], rec[6], valid, sarea,
                            theta_k)
-            prev = psafe
         clock.add("transfer", t1, clock.mark())
-    return carry[0], carry[1], n_segments
+    center_los = None
+    if collect_center:
+        center_los = _center_los(torch.cat(center_rows),
+                                 start[p_center], theta_los)
+    return carry[0], carry[1], n_segments, center_los
+
+
+# ---------------------------------------------------------------------------
+# Straight-LOS baseline pipeline
+# ---------------------------------------------------------------------------
+
+def resample_mas_los(model_path, n_pix=128, x_range=(-1.44, 1.44),
+                     y_range=(-1.44, 1.44), n_z=400, dz0=3e-4,
+                     variable_spacing_z=True, z_range=None,
+                     phi0_offset=24.0, out_path=None, verbose=True,
+                     timestep=0, device="cuda"):
+    """Straight-LOS resampling of the MAS model (no refraction), sampled
+    on `device`.
+
+    Each pixel's LOS starts at the sphere surface (on disk) or just behind
+    the limb plane (off disk) and marches toward the observer along +z on
+    the irregular z grid; coordinates use cart_to_sph(x, -z, y, phi0)
+    (script/resampling_MAS_LOS.py:216-271). The (n_pix, n_pix, n_z)
+    coordinate block is built on the device. Returns the LOS_data dict of
+    float64 numpy: Ne_LOS/Te_LOS/B_LOS (NaN where r < 1), ds_LOS in cm,
+    x/y/z_coords in meters.
+    """
+    if variable_spacing_z:
+        z_rsun, dz = variable_z_grid(n_z, dz0)
+    else:
+        z_rsun, dz = linear_z_grid(n_z, z_range or (0.0, 4.0))
+
+    model = MASModel(model_path, timestep=timestep)
+    temp_var = model.temperature_variable()
+
+    xs = np.linspace(x_range[0], x_range[1], n_pix)
+    ys = np.linspace(y_range[0], y_range[1], n_pix)
+    X, Y = np.meshgrid(xs, ys)                   # X[i,j]=xs[j], Y[i,j]=ys[i]
+    rho_sq = X ** 2 + Y ** 2
+    z_start = np.where(
+        rho_sq < 1.0,
+        np.sqrt(np.maximum(1.0 - rho_sq, 0.0)) - 1e-6 / R_SUN_M,
+        -np.sqrt(np.maximum(rho_sq - 1.0, 0.0)) - 1e-6 / R_SUN_M,
+    )
+
+    f32, f64 = torch.float32, torch.float64
+    Z = (torch.as_tensor(z_start, dtype=f64, device=device)[:, :, None]
+         + torch.as_tensor(z_rsun, dtype=f64, device=device)[None, None, :]
+         ).to(f32)
+    Xb = torch.as_tensor(X, dtype=f32, device=device)[:, :, None].expand(
+        Z.shape)
+    Yb = torch.as_tensor(Y, dtype=f32, device=device)[:, :, None].expand(
+        Z.shape)
+    r, colat, lon = image_xyz_to_mas_sph(Xb, Yb, Z, phi0_offset)
+    valid = r >= 0.9999999
+
+    def sample(name):
+        v = model[name].sample_sph(r, colat, lon, device=device)
+        return torch.where(valid, v, math.nan).to(f64)
+
+    if verbose:
+        print(f"Sampling LOS grid {n_pix}x{n_pix}x{n_z} on {device}...")
+    ne = sample("rho").cpu().numpy()
+    te = sample(temp_var).cpu().numpy()
+    b = torch.sqrt(sum(sample(v) ** 2 for v in ("br", "bt", "bp")))
+    b = b.cpu().numpy()
+    ds = np.broadcast_to(dz[None, None, :] * R_SUN_CM, ne.shape).copy()
+
+    if (np.isfinite(ne).sum() == 0 and np.isfinite(te).sum() == 0
+            and np.isfinite(b).sum() == 0):
+        raise RuntimeError(
+            "All sampled LOS values are NaN. Check --dz0 units (R_sun); "
+            "common mistake is 7e4 vs 7e-4.")
+
+    result = {
+        "Ne_LOS": ne, "Te_LOS": te, "B_LOS": b, "ds_LOS": ds,
+        "x_coords": xs * R_SUN_M, "y_coords": ys * R_SUN_M,
+        "z_coords": z_rsun * R_SUN_M,
+    }
+    if out_path:
+        np.savez_compressed(out_path, **result)
+        if verbose:
+            print(f"LOS data saved to {out_path}")
+    return result
+
+
+def synthetic_ff(los_data, freq0, nfreq, freq_log_step, out_path=None,
+                 mechanism=1 + 4, verbose=True, device="cuda"):
+    """GRFF imaging of LOS data (the straight-LOS baseline) on `device`.
+
+    los_data: the resample_mas_los dict or the path of its .npz. The
+    voxels go to the transfer step-major, (n_z, n_pix^2), with ds NaN -> 0
+    and te NaN -> 1e4 K; a voxel is valid where ne, te and b are all
+    finite. Returns the emission dict (synthetic_FF_map_single_thread.py:
+    108-312); out_path gets ".npz" appended unless it ends with it.
+    """
+    if isinstance(los_data, (str, Path)):
+        los_data = dict(np.load(los_data))
+    ne = los_data["Ne_LOS"]
+    te = los_data["Te_LOS"]
+    b = los_data["B_LOS"]
+    ds = los_data["ds_LOS"]
+    x_coords = los_data["x_coords"]
+    y_coords = los_data["y_coords"]
+
+    n_pix = ne.shape[0]
+    n_z = ne.shape[2]
+    valid = ~(np.isnan(ne) | np.isnan(te) | np.isnan(b))
+
+    pixel_size_cm = (x_coords[1] - x_coords[0]) / R_SUN_M * R_SUN_CM
+    pixel_area_cm2 = pixel_size_cm * pixel_size_cm
+    frequencies_hz = log_spaced_freqs(freq0, nfreq, freq_log_step)
+
+    def to_zpix(a, nan=0.0):
+        a = torch.as_tensor(np.asarray(a, np.float64), device=device)
+        return torch.nan_to_num(a, nan=nan).reshape(n_pix * n_pix, n_z).T
+
+    if verbose:
+        print(f"GRFF transfer: {n_pix}x{n_pix} pixels, {n_z} voxels, "
+              f"{nfreq} freqs on {device}...")
+    res = get_mw_slice(
+        to_zpix(ds), to_zpix(te, nan=1e4), to_zpix(ne), to_zpix(b),
+        to_zpix(valid) > 0.5, freq0, nfreq, freq_log_step, pixel_area_cm2,
+        mechanism=mechanism, device=device)
+
+    intensity = (res.flux_o + res.flux_x).cpu().numpy().astype(np.float64)
+    pol = ((res.flux_o - res.flux_x).cpu().numpy().astype(np.float64)
+           / (intensity + 1e-30))
+    tb = tb_from_sfu(intensity, np.asarray(frequencies_hz)[None, :],
+                     pixel_area_cm2)
+    result = {
+        "emission_cube": tb.reshape(n_pix, n_pix, nfreq),
+        "emission_polVI_cube": pol.reshape(n_pix, n_pix, nfreq),
+        "frequencies_Hz": np.asarray(frequencies_hz),
+        "x_coords": x_coords, "y_coords": y_coords,
+    }
+    if out_path:
+        np.savez_compressed(str(out_path) + ".npz"
+                            if not str(out_path).endswith(".npz")
+                            else out_path, **result)
+        if verbose:
+            print(f"Saved {out_path}")
+    return result

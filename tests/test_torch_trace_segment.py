@@ -227,3 +227,12 @@ def test_wrapper_dispatches_cpu_to_plain_and_checks_inputs():
         trace_segment(tcube, scube, state[:6].contiguous(), *args[3:])
     with pytest.raises(ValueError, match=">= 1"):
         trace_segment(*args[:5], 0, 10, 2)
+
+
+def test_kernel_builds_without_fma_contraction():
+    """The kernel must round as the plain version's separate torch ops do:
+    gyroresonance maps move V/I by more than 1e-4 under rounding-level
+    differences in the records, so nvcc may not fuse a*b+c."""
+    from raytracinggrff_tpu_torch.ops.trace_segment import NVCC_FLAGS
+    assert "-fmad=false" in NVCC_FLAGS
+    assert "--use_fast_math" not in NVCC_FLAGS

@@ -90,12 +90,6 @@ def test_handedness_swap_exchanges_slots():
     assert not np.allclose(fwd[0], fwd[1])
 
 
-def test_gyroresonance_is_refused():
-    ft = torch.tensor([1e8], dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="gyroresonance"):
-        ptr.make_voxel_update(ft, AREA, 90.0, 1 | 2 | 4)
-
-
 def test_physics_functions_match_jax():
     rng = np.random.default_rng(5)
     n = 2000
