@@ -13,14 +13,16 @@ Phases:
   1. versions, card, kernel build
   2. kernel vs plain on a non-reflecting scene, every ray within tolerance
   3. kernel vs plain on the canonical scene's first segment (>= 99% of
-     rays within tolerance), with both times
+     rays within tolerance), with both times and the kernel's bound
   4. the main path at full size from a synthetic MAS model, run twice
-  5. the map through the kernel vs through the plain version (n_pix 32)
+  5. the map through the kernel vs through the plain version (n_pix 32),
+     max |dV/I| <= 1e-4
   6. resample_mas_los + synthetic_ff at the CLI defaults (128^2 x 400
      samples; 450 MHz, 4 frequencies)
   7. the gyroresonance map (mechanism 7, theta_mode 'los', 8-channel
      records) at the size of phase 4 on a b0_gauss = 50 model, its change
-     from mechanism 5, and kernel vs plain at n_pix 32
+     from mechanism 5, and kernel vs plain at n_pix 32 under the GR bar
+     (DV_BAR_GR)
   8. compare_los_raytracing's low band: 30, 60 and 120 MHz, 128^2 pixels,
      a 256^3 cube at extent 4
 Each path that traces rays runs with the launch count set to 0 just
@@ -48,6 +50,26 @@ KERNEL_REPLACES = "raytracinggrff_tpu/ops/pallas_trace.py:654"
 # record-row tolerances (atol, rtol) of tests/test_pallas_trace.py:52-65
 ROW_TOL = [(2e-4, 2e-4)] * 3 + [(5e-4, 5e-3), (1e-2, 1e-3), (1.0, 1e-3),
                                 (1e-3, 1e-3), (1e-4, 0.0)]
+# kernel-vs-plain bars on |dV/I| over lit map values: (max, 99th
+# percentile, share of values above 1e-4). The gyroresonance map moves V/I
+# by up to 2.7e-4 (p99 2.2e-5) when its cubes change by 1e-7 relative
+# (profile_slice.py phase floor), so its bar sits above that floor; the
+# fixed-theta map's floor is about 100x lower and keeps a max of 1e-4.
+DV_BAR_FIXED = (1e-4, 1e-4, 0.0)
+DV_BAR_GR = (1e-3, 1e-4, 0.01)
+# The H100 SXM's peak float32 rate outside the tensor cores and its memory
+# rate (NVIDIA's data sheet, at 700 W), for the kernel's bound.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
+# float32 operations of csrc/trace_segment.cu, counting each add, multiply,
+# divide and square root as one (compares, clamps and floors not counted).
+# One trace-cube evaluation is locate 9 + seven lerp4 91 + rhs 18 = 118.
+# A cross-section step is the central RK4 (4 evaluations + 80) 552, the
+# transverse basis 52, two perturbed RK4s (4 evaluations + 65 each) 1074
+# and the area ratio 24. A record is locate 9 + 91 per float4 group + 1,
+# + 19 for cos theta with 8 channels.
+FLOPS_PER_STEP = 1702
+FLOPS_PER_RECORD = {4: 101, 8: 211}
 SLICE = dict(n_pix=256, x_fov=1.44, freq_hz=75e6, grid_n=128,
              grid_extent=3.0, z_observer=3.0, dt=6e-3, n_steps=5000,
              record_stride=10, nfreq=3, freq0=75e6, freq_log_step=0.05,
@@ -114,9 +136,9 @@ def bundle_scene(n=41, extent=2.0, freq=80e6):
                   for k, v in fields.items()}
 
 
-def canonical_scene():
+def canonical_scene(n_pix=256):
     """The canonical trace workload of bench.py: a Newkirk-like density
-    cube, overdense below r = 1, and the 256^2 image-plane rays."""
+    cube, overdense below r = 1, and the n_pix^2 image-plane rays."""
     from raytracinggrff_tpu_torch.grids import UniformGrid
     from raytracinggrff_tpu_torch.pipeline import image_ray_starts
     grid = UniformGrid.cube(3.0, 128)
@@ -127,7 +149,7 @@ def canonical_scene():
     t = {k: torch.as_tensor(v.astype(np.float32), device="cuda")
          for k, v in dict(wpe=wpe, ne=ne, te=np.full_like(ne, 1.4e6),
                           b=np.ones_like(ne)).items()}
-    _, _, start, kdir = image_ray_starts(256, 1.44, 3.0)
+    _, _, start, kdir = image_ray_starts(n_pix, 1.44, 3.0)
     return grid, t, start, kdir
 
 
@@ -200,6 +222,26 @@ def phase_small(out):
     out["max_abs_err"] = worst_r
 
 
+def segment_bound_ms(tcube, scube, state, rec, n_first, stride):
+    """Least time the card needs for one segment: the larger of its float32
+    operations at PEAK_F32_FLOPS and its bytes (each cube, the state in
+    and out and the records once) at PEAK_BYTES_S. Only steps of rays that
+    are still in the cube count: those of each record block that ends with
+    S > 0 (a frozen ray's S drops to 0). Returns (ms, "operations" or
+    "bytes")."""
+    rps = rec.shape[0]
+    live = (rec[:, 3] > 0).sum(dim=1).double().cpu().numpy()
+    steps = np.full(rps, float(stride))
+    steps[0] = n_first
+    ops = (FLOPS_PER_STEP * float((live * steps).sum())
+           + FLOPS_PER_RECORD[scube.shape[3]] * float(live.sum()))
+    nbytes = 4 * (tcube.numel() + scube.numel() + 2 * state.numel()
+                  + rec.numel())
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def phase_canonical(out):
     from raytracinggrff_tpu_torch.ops.trace_segment import (
         trace_segment, trace_segment_plain)
@@ -219,10 +261,13 @@ def phase_canonical(out):
     assert frac >= 0.99, f"only {frac:.4f} of rays agree"
     ms = cuda_ms(lambda: trace_segment(*args), reps=5)
     plain_ms = cuda_ms(lambda: trace_segment_plain(*args), reps=1)
+    bound_ms, bound_by = segment_bound_ms(tcube, scube, state, rec_k, 1, 10)
     steps = 65536 * 631
     say(f"[3] segment time: kernel {ms:.3f} ms "
-        f"({steps / ms * 1e3:.4g} ray-steps/s), plain {plain_ms:.1f} ms")
-    out.update(ms=ms, plain_ms=plain_ms)
+        f"({steps / ms * 1e3:.4g} ray-steps/s), plain {plain_ms:.1f} ms; "
+        f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.4f} of it")
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
 
 
 def phase_main(out, tmp):
@@ -267,10 +312,11 @@ def phase_main(out, tmp):
     out.update(launches=launches, wall=wall, timings=timings)
 
 
-def map_kernel_vs_plain(tag, cubes, device="cuda", **overrides):
+def map_kernel_vs_plain(tag, cubes, bar, device="cuda", **overrides):
     """The n_pix 32 x 600-step map through the kernel and through the
-    plain version on the same cubes, under the bar of
-    tests/test_streamed_pipeline.py: rel T_b <= 5e-3, |dV/I| <= 1e-4."""
+    plain version on the same cubes: rel T_b <= 5e-3 (the bar of
+    tests/test_streamed_pipeline.py) and |dV/I| within `bar`, one of
+    DV_BAR_FIXED and DV_BAR_GR."""
     from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
                                                    run_ray_tracing_emission)
     cfg = RayEmissionConfig(**dict(SLICE, n_pix=32, n_steps=600, nfreq=2,
@@ -285,10 +331,14 @@ def map_kernel_vs_plain(tag, cubes, device="cuda", **overrides):
     rel = np.abs(b[lit] - a[lit]) / a[lit]
     dv = np.abs(r_k["emission_polVI_cube"][lit]
                 - r_p["emission_polVI_cube"][lit])
-    say(f"[{tag}] map kernel vs plain: {lit.sum()} lit pixels, max rel T_b "
+    p99 = np.percentile(dv, 99)
+    above = int((dv > 1e-4).sum())
+    say(f"[{tag}] map kernel vs plain: {lit.sum()} lit values, max rel T_b "
         f"diff {rel.max():.3g}, |V/I diff| max {dv.max():.3g}, p99 "
-        f"{np.percentile(dv, 99):.3g}")
-    assert lit.sum() > 20 and rel.max() <= 5e-3 and dv.max() <= 1e-4
+        f"{p99:.3g}, {above} above 1e-4 (bar: max {bar[0]:g}, p99 "
+        f"{bar[1]:g}, share above 1e-4 {bar[2]:g})")
+    assert lit.sum() > 20 and rel.max() <= 5e-3
+    assert dv.max() <= bar[0] and p99 <= bar[1] and above <= bar[2] * dv.size
 
 
 def phase_map():
@@ -300,7 +350,7 @@ def phase_map():
         model = MASModel(synthetic_mas_model(Path(tmp) / "corona"))
         cubes = prepare_cubes(model, UniformGrid.cube(3.0, 128), 0.0,
                               verbose=False, device="cuda")
-    map_kernel_vs_plain("5", cubes)
+    map_kernel_vs_plain("5", cubes, DV_BAR_FIXED)
 
 
 def n_segments(cfg):
@@ -387,7 +437,7 @@ def phase_gyro(tmp, n_pix=256, n_steps=5000, grid_n=128, device="cuda"):
     say(f"[7] {changed.mean():.5f} of {changed.size} on-disk values differ "
         f"by more than 1% from mechanism 5")
     assert changed.mean() > 0.5, changed.mean()
-    map_kernel_vs_plain("7", cubes, device=device, grid_n=grid_n,
+    map_kernel_vs_plain("7", cubes, DV_BAR_GR, device=device, grid_n=grid_n,
                         mechanism=7, theta_mode="los")
     return {"wall": wall, "timings": timings, "changed": changed.mean()}
 
@@ -456,7 +506,9 @@ def main():
         "name": "trace_segment", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": out["launches"],
         "max_abs_err": out["max_abs_err"], "ms": out["ms"],
-        "plain_ms": out["plain_ms"]}]}))
+        "plain_ms": out["plain_ms"], "bound_ms": out["bound_ms"],
+        "bound_by": out["bound_by"], "library_ms": None,
+        "bound_share": out["bound_ms"] / out["ms"]}]}))
     say(smi_line())
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,33 +4,46 @@ pass/fail checks of chip_smoke.py.
 
     python3 profile_slice.py          # from the repository root, on a card
 
-  1. fmad: the canonical first segment (65,536 rays x 631 steps) through
-     the kernel built with -fmad=false (the default build) and with nvcc's
-     FMA contraction: ptxas registers and spills of each build, the median of
-     6 alternated timings of 10 launches each, and the agreement of each
-     build with the plain version.
-  2. spread: the production slice of chip_smoke.py (256^2 rays x 5000
+  1. spread: the production slice of chip_smoke.py (256^2 rays x 5000
      steps x 128^3 cube, nfreq 3) from a synthetic MAS model; one warm-up
      run, then 5 timed runs, with the median and quartiles of each stage.
-  3. profile: one more run of the slice under torch.profiler; the time the
+  2. profile: one more run of the slice under torch.profiler; the time the
      device was busy (the union of its kernel and copy intervals) over the
      run's wall time, the number of device kernels and the kernels with
      the most device time.
+  3. cache: the kernel's per-ray cell cache, and FMA contraction. Four
+     builds of the kernel (CACHE_VARIANTS: the uncached design, forced
+     to miss on every evaluation by -DRGRFF_CACHE_OFF, and the shipped
+     cache, each with nvcc's FMA contraction, NVCC_FLAGS, and with
+     -fmad=false, EXACT_NVCC_FLAGS), with their SASS opcode counts
+     (cuobjdump), are timed in turns, median of 6 timings of 10 launches
+     (4 at 512^2), on the canonical first segment (65,536 rays x 631
+     steps) at 256^2 and 512^2 rays, and on a uniform 2^3 cube whose 8
+     voxels fill one 128-byte line (the no-gather floor), each beside the
+     segment's bound and the SM clock read just after the timings. Each
+     build's records are held against the shipped build's, and on the
+     canonical 256^2 segment against the plain version's. A counting
+     build (-DRGRFF_COUNT_CACHE) gives the hit rate per evaluation kind
+     (central, perturbed) on each scene and over the production slice's 8
+     segments.
   4. floor: the noise floor of the theta_mode='los' map that chip_smoke.py
-     phase 7 holds to |dV/I| <= 1e-4 (n_pix 32 x 600 steps on a b0_gauss =
+     phase 7 holds to DV_BAR_GR (n_pix 32 x 600 steps on a b0_gauss =
      50 model's 128^3 cubes, nfreq 2), for mechanism 5 and for mechanism 7
      (gyroresonance). Against the plain map: the plain map on cubes
-     multiplied by (1 + 1e-7 N(0,1)), and the map through each build of
-     phase 1. For each: lit values, max rel T_b, max and 99th percentile
-     of |dV/I| and the count above 1e-4.
+     multiplied by (1 + 1e-7 N(0,1)), and the map through the shipped
+     build and its -fmad=false twin. For each: lit values, max rel T_b,
+     max and 99th percentile of |dV/I| and the count above 1e-4.
 The card's name and power limit are printed first and last. Without a
 CUDA device it exits 1.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
+import re
+import subprocess
 import sys
 import tempfile
 import time
@@ -40,9 +53,18 @@ import numpy as np
 import torch
 
 from chip_smoke import (SLICE, canonical_scene, compare_records, cuda_ms,
-                        initial_state, plain_segments, say, smi_line)
+                        initial_state, plain_segments, say,
+                        segment_bound_ms, smi_line)
 
 STAGES = ("wall", "resample", "trace", "transfer", "finish")
+# phase cache: flags added to NVCC_FLAGS for each build; "shipped" adds
+# none, and "shipped_nofma" is EXACT_NVCC_FLAGS
+CACHE_VARIANTS = {
+    "uncached": ("-DRGRFF_CACHE_OFF",),
+    "uncached_nofma": ("-DRGRFF_CACHE_OFF", "-fmad=false"),
+    "shipped": (),
+    "shipped_nofma": ("-fmad=false",),
+}
 
 
 @contextlib.contextmanager
@@ -57,44 +79,147 @@ def kernel_library(lib):
         ts._library = saved
 
 
-def build_libraries():
-    """The kernel library with nvcc's FMA contraction ("fma") and as
-    NVCC_FLAGS build it ("nofma", -fmad=false)."""
+def build_all(flag_sets):
+    """Build every {name: nvcc flags} library at once (one nvcc each) and
+    load them; prints each build's ptxas registers and spills."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from raytracinggrff_tpu_torch.ops import trace_segment as ts
+    with ThreadPoolExecutor(len(flag_sets)) as pool:
+        built = dict(zip(flag_sets, pool.map(ts.build_library,
+                                             flag_sets.values())))
     libs = {}
-    fma_flags = tuple(f for f in ts.NVCC_FLAGS if f != "-fmad=false")
-    for name, flags in (("fma", fma_flags), ("nofma", ts.NVCC_FLAGS)):
-        path, log = ts.build_library(flags)
+    for name, (path, log) in built.items():
         libs[name] = ts.load_library(path)
         for line in log.splitlines():
             if "Compiling" in line or "spill" in line or "registers" in line:
-                say(f"[fmad] {name} ptxas: {line.strip()}")
+                say(f"[build] {name} ptxas: {line.strip()}")
     return libs
 
 
-def phase_fmad(libs):
+def sass_mix(lib, top=16):
+    """Static SASS opcode counts (cuobjdump -sass) of the library's
+    cross-section, 4-channel, 32-bit-offset kernel, the main path's. Its
+    step loop is straight-line code, so the counts are about one step's
+    instruction mix plus one record."""
     from raytracinggrff_tpu_torch.ops import trace_segment as ts
+    cuobjdump = Path(ts._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", lib._name],
+                          capture_output=True, text=True, check=True).stdout
+    body = next(sec for sec in sass.split("Function : ")
+                if sec.startswith("_Z") and "kernelILb1ELi1EiE" in
+                sec.split()[0])
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                     body)
+    counts = collections.Counter(ops)
+    return len(ops), counts.most_common(top)
+
+
+def flag_sets():
+    """The builds of phase cache and the shipped build's counting twin
+    ("count")."""
+    from raytracinggrff_tpu_torch.ops import trace_segment as ts
+    sets = {name: ts.NVCC_FLAGS + defs
+            for name, defs in CACHE_VARIANTS.items()}
+    assert sets["shipped_nofma"] == ts.EXACT_NVCC_FLAGS
+    sets["count"] = ts.NVCC_FLAGS + ("-DRGRFF_COUNT_CACHE",)
+    return sets
+
+
+def uniform_scene(n_pix):
+    """The canonical rays in a uniform medium (omega_pe half the 75 MHz
+    wave's) on a 2^3 cube of the same extent: every evaluation reads the
+    same 8 voxels, one 128-byte line."""
+    from raytracinggrff_tpu_torch.grids import UniformGrid
+    from raytracinggrff_tpu_torch.pipeline import image_ray_starts
     from raytracinggrff_tpu_torch.tracer_segments import prepare_trace_inputs
-    grid, f, start, kdir = canonical_scene()
+    grid = UniformGrid.cube(3.0, 2)
+    full = torch.full(grid.shape, 1.0, device="cuda")
+    tcube, scube = prepare_trace_inputs(full * (np.pi * 75e6), full * 1e8,
+                                        full * 1.4e6, full, grid)
+    _, _, start, kdir = image_ray_starts(n_pix, 1.44, 3.0)
+    state = initial_state(tcube, grid, 75e6, start, kdir)
+    return tcube, scube, state, grid
+
+
+def canonical_args(n_pix):
+    from raytracinggrff_tpu_torch.tracer_segments import prepare_trace_inputs
+    grid, f, start, kdir = canonical_scene(n_pix)
     tcube, scube = prepare_trace_inputs(f["wpe"], f["ne"], f["te"], f["b"],
                                         grid)
     state = initial_state(tcube, grid, 75e6, start, kdir)
-    args = (tcube, scube, state, grid, 6e-3, 1, 10, 64)
-    times = {name: [] for name in libs}
-    for _ in range(6):
-        for name, lib in libs.items():
-            with kernel_library(lib):
-                times[name].append(
-                    cuda_ms(lambda: ts.trace_segment(*args), reps=10))
-    _, rec_p = ts.trace_segment_plain(*args)
-    for name, lib in libs.items():
-        with kernel_library(lib):
-            _, rec_k = ts.trace_segment(*args)
-        ok, worst = compare_records(rec_k, rec_p)
-        say(f"[fmad] {name}: segment ms {['%.4f' % t for t in times[name]]}"
-            f" median {np.median(times[name]):.4f}; {ok.mean():.6f} of rays"
-            f" agree with plain; max |diff| per row "
-            f"{['%.3g' % w for w in worst]}")
+    return tcube, scube, state, grid
+
+
+def hit_rates(lib, fn):
+    """[central, perturbed] hit rates and evaluation counts of fn()'s
+    launches through the counting library `lib`."""
+    from raytracinggrff_tpu_torch.ops import trace_segment as ts
+    ts.trace_segment.cache_counts = None
+    with kernel_library(lib):
+        fn()
+    ev_c, miss_c, ev_p, miss_p = ts.trace_segment.cache_counts.tolist()
+    return ([1 - miss_c / max(ev_c, 1), 1 - miss_p / max(ev_p, 1)],
+            [ev_c, ev_p])
+
+
+def phase_cache(libs, model, cfg):
+    from raytracinggrff_tpu_torch.ops import trace_segment as ts
+    names = list(CACHE_VARIANTS)
+    for name in names:
+        total, top = sass_mix(libs[name])
+        say(f"[cache] {name} SASS: {total} instructions; "
+            + ", ".join(f"{op} {n}" for op, n in top))
+    for n_pix in (256, 512):
+        reps = 10 if n_pix == 256 else 4
+        scenes = {"canonical": canonical_args(n_pix),
+                  "uniform": uniform_scene(n_pix)}
+        for scene, (tcube, scube, state, grid) in scenes.items():
+            args = (tcube, scube, state, grid, 6e-3, 1, 10, 64)
+            times = {name: [] for name in names}
+            for turn in range(6):
+                for name in (names if turn % 2 == 0 else names[::-1]):
+                    with kernel_library(libs[name]):
+                        times[name].append(cuda_ms(
+                            lambda: ts.trace_segment(*args), reps=reps))
+            clocks = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+                 "power.draw", "--format=csv,noheader"], capture_output=True,
+                text=True, check=True).stdout.strip()
+            with kernel_library(libs["shipped"]):
+                _, rec_ref = ts.trace_segment(*args)
+            bound_ms, bound_by = segment_bound_ms(tcube, scube, state,
+                                                  rec_ref, 1, 10)
+            tag = f"[cache] {n_pix}^2 {scene}"
+            say(f"{tag}: bound {bound_ms:.4f} ms ({bound_by}); SM clock, "
+                f"its maximum and power just after the timings: {clocks}")
+            rec_plain = None
+            if n_pix == 256 and scene == "canonical":
+                _, rec_plain = ts.trace_segment_plain(*args)
+            for name in names:
+                with kernel_library(libs[name]):
+                    _, rec = ts.trace_segment(*args)
+                _, worst = compare_records(rec, rec_ref)
+                med = float(np.median(times[name]))
+                say(f"{tag} {name}: ms {['%.4f' % t for t in times[name]]} "
+                    f"median {med:.4f}, {bound_ms / med:.4f} of the bound; "
+                    f"max |diff| per row vs shipped "
+                    f"{['%.3g' % w for w in worst]}")
+                if rec_plain is not None:
+                    ok, worst = compare_records(rec, rec_plain)
+                    say(f"{tag} {name}: {ok.mean():.6f} of rays agree with "
+                        f"plain; max |diff| per row "
+                        f"{['%.3g' % w for w in worst]}")
+            rates, evals = hit_rates(libs["count"],
+                                     lambda: ts.trace_segment(*args))
+            say(f"{tag} hit rate central {rates[0]:.5f} of {evals[0]}, "
+                f"perturbed {rates[1]:.5f} of {evals[1]} evaluations")
+        del scenes
+        torch.cuda.empty_cache()
+    rates, evals = hit_rates(libs["count"], lambda: run_slice(model, cfg))
+    say(f"[cache] production slice (8 segments) hit rate central "
+        f"{rates[0]:.5f} of {evals[0]}, perturbed {rates[1]:.5f} of "
+        f"{evals[1]} evaluations")
 
 
 def run_slice(model, cfg):
@@ -219,14 +344,15 @@ def main():
     say(f"nvidia-smi: {smi_line()}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}")
     with torch.inference_mode():
-        libs = build_libraries()
-        phase_fmad(libs)
+        libs = build_all(flag_sets())
         with tempfile.TemporaryDirectory() as tmp:
             model = synthetic_mas_model(Path(tmp) / "corona", timestep=2)
             cfg = RayEmissionConfig(**SLICE)
             phase_spread(model, cfg)
             phase_profile(model, cfg)
-        phase_floor(libs)
+            phase_cache(libs, model, cfg)
+        phase_floor({name: libs[name]
+                     for name in ("shipped", "shipped_nofma")})
     say(f"nvidia-smi: {smi_line()}")
     return 0
 

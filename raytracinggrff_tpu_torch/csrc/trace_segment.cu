@@ -14,19 +14,41 @@
 // perturbed pair, and its per-evaluation validity: an evaluation outside
 // the cube zeroes dr and leaves dk NaN, which freezes the ray for good.
 //
-// What bounds it on the card: every step makes 12 trilinear evaluations
-// (3 RK4s x 4 stages), each 8 dependent float4 gathers from a cube of
-// nx*ny*nz*16 bytes (32 MiB at 128^3), so the work is gathers that depend
-// on the ray's own state. Which cache level serves them (L1 or L2) has not
-// been measured: no profiler counter of hit rates was read.
-// What the design does about it: one thread per ray keeps r, k and cumS
-// in registers for the whole segment (no state traffic between steps);
-// the trace cube is channels-last so one 16-byte __ldg brings all four
-// channels [omega_pe, grad] of a corner; the 128^3 cube fits the 50 MB L2;
-// records go to records[b][row][ray] so a warp writes 128 contiguous
-// bytes per row. Weights are computed in f32 by hand: texture filtering
-// keeps 8-bit weights, too coarse for parity with the f32 reference.
-// Cube offsets are 64-bit (a 576^3 x 8-channel cube exceeds 2^31 bytes).
+// Every step makes 12 trilinear evaluations of the trace cube (3 RK4s x
+// 4 stages), 1,702 float32 operations; read straight from the cube, each
+// evaluation is also 8 dependent float4 gathers, a warp's 32 rays on
+// cells 262 KB apart along x (at 128^3). Those gathers cost about a
+// quarter of the uncached design's time. What the design does about them:
+// a step moves a ray by at most ~0.06 of a cell and its perturbed pair
+// sits within ~0.11 of a cell, so a ray makes some 200 evaluations in one
+// cell. Each ray keeps the 8 float4 corners of the trace-cube cell it last
+// loaded, and that cell's flat index, in registers (its cache; 96
+// registers in all at 32-bit offsets). Every evaluation, central or
+// perturbed, whose cell matches reads no memory; on a miss only the lanes
+// that miss load the cell into the cache, and every lane then runs one
+// lerp sequence on its cached corners (a cache kept for the central ray
+// alone forces a second lerp sequence or 32 selects on the lanes that
+// miss, and measured slower). The cached corners are the bytes a load
+// would return and the lerps run in the same order, so the records do not
+// depend on the cache. `locate` floors without the conversion pipe.
+// What bounds it on the card then: the arithmetic, not the gathers. The
+// canonical segment runs as fast as on a uniform cube whose every gather
+// hits one line (PERF.md); whether instruction issue or dependency latency
+// limits the arithmetic is not measured.
+// The rest: one thread per ray keeps r, k and cumS in
+// registers for the whole segment; the cubes are channels-last so one
+// 16-byte __ldg brings four channels of a corner; records go to
+// records[b][row][ray] so a warp writes 128 contiguous bytes per row.
+// Weights are computed in f32 by hand: texture filtering keeps 8-bit
+// weights, too coarse for parity with the f32 reference. Cube offsets are
+// 32-bit float4 indices unless the wrapper asks for 64-bit ones
+// (wide_index, for cubes of 2^31 float4 or more).
+//
+// Compile-time switches, for measurement only (profile_slice.py phase
+// cache passes them; the shipped build sets neither):
+//   RGRFF_CACHE_OFF        every evaluation misses: the uncached design.
+//   RGRFF_COUNT_CACHE      count evaluations and misses per kind (central,
+//                          perturbed) into the wrapper's counter.
 
 #include <cuda_runtime.h>
 
@@ -38,12 +60,23 @@ struct TraceParams {  // mirrored by ops/trace_segment.py::_TraceParams
   float x0, y0, z0, inv_dx, inv_dy, inv_dz;
   float fill_ne, fill_te, fill_b;
   int nx, ny, nz, n_rays, n_first, stride, rps, crosssections,
-      sample_channels;
+      sample_channels, wide_index;
 };
 
 namespace {
 
 constexpr int kThreads = 128;
+#ifdef RGRFF_CACHE_OFF
+constexpr bool kCacheOff = true;
+#else
+constexpr bool kCacheOff = false;
+#endif
+#ifdef RGRFF_COUNT_CACHE
+constexpr int kCounters = 4;  // central evals, misses, perturbed evals, misses
+#else
+constexpr int kCounters = 0;
+#endif
+enum Kind { kCentral = 0, kPerturbed = 1 };
 
 struct V3 {
   float x, y, z;
@@ -67,27 +100,64 @@ __device__ __forceinline__ V3 cross(V3 a, V3 b) {
 }
 
 // Corner of the trilinear cell around a position (ops/trilinear.py).
+template <typename Idx>
 struct Cell {
-  int64_t base;  // flat voxel index of corner (i0, j0, k0)
+  Idx base;  // flat voxel index of corner (i0, j0, k0)
   float tx, ty, tz;
 };
 
+// min(floor(f), top) as an int and as a float, for 0 <= f < 2^23, with
+// no conversion instruction (those issue at 1/8 of the FP32 rate): 2^23
+// added with rounding down holds floor(f) in its low mantissa bits.
+__device__ __forceinline__ int floor_index(float f, int top, float ftop,
+                                           float& fl) {
+  const float t = __fadd_rd(f, 8388608.f);
+  fl = fminf(t - 8388608.f, ftop);
+  return min(__float_as_int(t) - 0x4B000000, top);
+}
+
 // False outside the cube; NaN positions fail every comparison.
-__device__ __forceinline__ bool locate(const TraceParams& p, V3 r, Cell& c) {
+template <typename Idx>
+__device__ __forceinline__ bool locate(const TraceParams& p, V3 r,
+                                       Cell<Idx>& c) {
   const float fx = (r.x - p.x0) * p.inv_dx;
   const float fy = (r.y - p.y0) * p.inv_dy;
   const float fz = (r.z - p.z0) * p.inv_dz;
   if (!(fx >= 0.f && fy >= 0.f && fz >= 0.f && fx <= float(p.nx - 1) &&
         fy <= float(p.ny - 1) && fz <= float(p.nz - 1)))
     return false;
-  const int i0 = min(int(floorf(fx)), p.nx - 2);
-  const int j0 = min(int(floorf(fy)), p.ny - 2);
-  const int k0 = min(int(floorf(fz)), p.nz - 2);
-  c.tx = fminf(fmaxf(fx - float(i0), 0.f), 1.f);
-  c.ty = fminf(fmaxf(fy - float(j0), 0.f), 1.f);
-  c.tz = fminf(fmaxf(fz - float(k0), 0.f), 1.f);
-  c.base = (int64_t(i0) * p.ny + j0) * p.nz + k0;
+  // the cube has fewer than 2^23 nodes per axis, so the floors are exact
+  float gx, gy, gz;
+  const int i0 = floor_index(fx, p.nx - 2, float(p.nx - 2), gx);
+  const int j0 = floor_index(fy, p.ny - 2, float(p.ny - 2), gy);
+  const int k0 = floor_index(fz, p.nz - 2, float(p.nz - 2), gz);
+  c.tx = fminf(fmaxf(fx - gx, 0.f), 1.f);
+  c.ty = fminf(fmaxf(fy - gy, 0.f), 1.f);
+  c.tz = fminf(fmaxf(fz - gz, 0.f), 1.f);
+  c.base = (Idx(i0) * p.ny + j0) * p.nz + k0;
   return true;
+}
+
+// The 8 corners of float4 group g of cell `base` in a cube with `groups`
+// float4 per voxel, in the order c000, c100, c010, c110, c001, c101, c011,
+// c111.
+template <typename Idx>
+__device__ __forceinline__ void load_corners(const float4* __restrict__ cube,
+                                             int groups, int g,
+                                             const TraceParams& p, Idx base,
+                                             float4 (&v)[8]) {
+  const Idx sx = Idx(p.ny) * p.nz * groups;
+  const Idx sy = Idx(p.nz) * groups;
+  const Idx sz = groups;
+  const Idx o = base * groups + g;
+  v[0] = __ldg(cube + o);
+  v[1] = __ldg(cube + (o + sx));
+  v[2] = __ldg(cube + (o + sy));
+  v[3] = __ldg(cube + (o + sx + sy));
+  v[4] = __ldg(cube + (o + sz));
+  v[5] = __ldg(cube + (o + sx + sz));
+  v[6] = __ldg(cube + (o + sy + sz));
+  v[7] = __ldg(cube + (o + sx + sy + sz));
 }
 
 __device__ __forceinline__ float4 lerp4(float4 a, float4 b, float t) {
@@ -96,40 +166,91 @@ __device__ __forceinline__ float4 lerp4(float4 a, float4 b, float t) {
                      a.w * u + b.w * t);
 }
 
-// Trilinear value of float4 group g of a cube with `groups` float4 per
-// voxel, in the lerp order of ops/trilinear.py::trilinear_packed.
-__device__ __forceinline__ float4 trilerp(const float4* __restrict__ cube,
-                                          int groups, int g,
-                                          const TraceParams& p,
-                                          const Cell& c) {
-  const int64_t sx = int64_t(p.ny) * p.nz * groups;
-  const int64_t sy = int64_t(p.nz) * groups;
-  const int64_t sz = groups;
-  const float4* q = cube + c.base * groups + g;
-  const float4 c000 = __ldg(q);
-  const float4 c100 = __ldg(q + sx);
-  const float4 c010 = __ldg(q + sy);
-  const float4 c110 = __ldg(q + sx + sy);
-  const float4 c001 = __ldg(q + sz);
-  const float4 c101 = __ldg(q + sx + sz);
-  const float4 c011 = __ldg(q + sy + sz);
-  const float4 c111 = __ldg(q + sx + sy + sz);
-  const float4 c00 = lerp4(c000, c100, c.tx);
-  const float4 c10 = lerp4(c010, c110, c.tx);
-  const float4 c01 = lerp4(c001, c101, c.tx);
-  const float4 c11 = lerp4(c011, c111, c.tx);
+// Trilinear value from a cell's corners, in the lerp order of
+// ops/trilinear.py::trilinear_packed.
+template <typename Idx>
+__device__ __forceinline__ float4 lerp_corners(const float4 (&v)[8],
+                                               const Cell<Idx>& c) {
+  const float4 c00 = lerp4(v[0], v[1], c.tx);
+  const float4 c10 = lerp4(v[2], v[3], c.tx);
+  const float4 c01 = lerp4(v[4], v[5], c.tx);
+  const float4 c11 = lerp4(v[6], v[7], c.tx);
   const float4 c0 = lerp4(c00, c10, c.ty);
   const float4 c1 = lerp4(c01, c11, c.ty);
   return lerp4(c0, c1, c.tz);
 }
 
-// ODE right-hand side (tracer.py::_rhs).
+template <typename Idx>
+__device__ __forceinline__ float4 trilerp(const float4* __restrict__ cube,
+                                          int groups, int g,
+                                          const TraceParams& p,
+                                          const Cell<Idx>& c) {
+  float4 v[8];
+  load_corners(cube, groups, g, p, c.base, v);
+  return lerp_corners(v, c);
+}
+
+// A ray's cache: the flat index and the 8 corners of the trace-cube cell
+// it last loaded, in registers, and its hit counts when counted.
+template <typename Idx>
+struct RayCache {
+  Idx key;
+  float4 v[8];
+  unsigned evals[2], misses[2];
+
+  __device__ __forceinline__ void init() {
+    key = Idx(-1);
+    evals[0] = evals[1] = misses[0] = misses[1] = 0;
+  }
+
+  // Trilinear trace-cube value at cell c for an evaluation of `kind`. A
+  // miss, central or perturbed, loads c's cell into the cache in the lanes
+  // that miss; every lane then runs one lerp sequence on its cached
+  // corners, so a warp whose lanes split between hit and miss does not
+  // run it twice.
+  template <Kind kind>
+  __device__ __forceinline__ float4 value(const float4* __restrict__ tcube,
+                                          const TraceParams& p,
+                                          const Cell<Idx>& c) {
+    if (kCounters) ++evals[kind];
+    if (kCacheOff || c.base != key) {
+      if (kCounters) ++misses[kind];
+      key = c.base;
+      load_corners(tcube, 1, 0, p, c.base, v);
+    }
+    return lerp_corners(v, c);
+  }
+
+  // Add this warp's counts to counts[0..3] (one atomic per counter).
+  __device__ __forceinline__ void flush(unsigned long long* counts) const {
+    const unsigned mask = __activemask();
+    const unsigned vals[4] = {evals[0], misses[0], evals[1], misses[1]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned sum = __reduce_add_sync(mask, vals[i]);
+      if (int(threadIdx.x % 32) == __ffs(mask) - 1)
+        atomicAdd(counts + i, static_cast<unsigned long long>(sum));
+    }
+  }
+};
+
+// [omega_pe, grad] at r: NaN outside the cube.
+template <Kind kind, typename Idx>
+__device__ __forceinline__ float4 field(const float4* __restrict__ tcube,
+                                        const TraceParams& p,
+                                        RayCache<Idx>& cache, V3 r) {
+  Cell<Idx> c;
+  return locate(p, r, c) ? cache.template value<kind>(tcube, p, c)
+                         : make_float4(NAN, NAN, NAN, NAN);
+}
+
+// ODE right-hand side at (r, k) (tracer.py::_rhs).
+template <Kind kind, typename Idx>
 __device__ __forceinline__ void rhs(const float4* __restrict__ tcube,
-                                    const TraceParams& p, V3 r, V3 k,
+                                    const TraceParams& p,
+                                    RayCache<Idx>& cache, V3 r, V3 k,
                                     V3& dr, V3& dk) {
-  Cell c;
-  const float4 v = locate(p, r, c) ? trilerp(tcube, 1, 0, p, c)
-                                   : make_float4(NAN, NAN, NAN, NAN);
+  const float4 v = field<kind>(tcube, p, cache, r);
   const float wpe = v.x;
   const float om2 = wpe * wpe + dot(k, k);
   // NaN om2 becomes 0 here where the reference keeps NaN: both are invalid
@@ -143,22 +264,28 @@ __device__ __forceinline__ void rhs(const float4* __restrict__ tcube,
   dk = valid ? V3{b * v.y, b * v.z, b * v.w} : V3{b * 0.f, b * 0.f, b * 0.f};
 }
 
+__device__ __forceinline__ V3 rk4_sum(float c, V3 x, V3 d1, V3 d2, V3 d3,
+                                      V3 d4) {
+  return {x.x + c * (d1.x + 2.f * d2.x + 2.f * d3.x + d4.x),
+          x.y + c * (d1.y + 2.f * d2.y + 2.f * d3.y + d4.y),
+          x.z + c * (d1.z + 2.f * d2.z + 2.f * d3.z + d4.z)};
+}
+
+template <Kind kind, typename Idx>
 __device__ __forceinline__ void rk4(const float4* __restrict__ tcube,
-                                    const TraceParams& p, V3 r, V3 k,
+                                    const TraceParams& p,
+                                    RayCache<Idx>& cache, V3 r, V3 k,
                                     V3& r_new, V3& k_new) {
   const float h = 0.5f * p.dt;
   V3 k1r, k1k, k2r, k2k, k3r, k3k, k4r, k4k;
-  rhs(tcube, p, r, k, k1r, k1k);
-  rhs(tcube, p, axpy(h, k1r, r), axpy(h, k1k, k), k2r, k2k);
-  rhs(tcube, p, axpy(h, k2r, r), axpy(h, k2k, k), k3r, k3k);
-  rhs(tcube, p, axpy(p.dt, k3r, r), axpy(p.dt, k3k, k), k4r, k4k);
+  rhs<kind>(tcube, p, cache, r, k, k1r, k1k);
+  rhs<kind>(tcube, p, cache, axpy(h, k1r, r), axpy(h, k1k, k), k2r, k2k);
+  rhs<kind>(tcube, p, cache, axpy(h, k2r, r), axpy(h, k2k, k), k3r, k3k);
+  rhs<kind>(tcube, p, cache, axpy(p.dt, k3r, r), axpy(p.dt, k3k, k), k4r,
+            k4k);
   const float c = p.dt / 6.f;
-  r_new = {r.x + c * (k1r.x + 2.f * k2r.x + 2.f * k3r.x + k4r.x),
-           r.y + c * (k1r.y + 2.f * k2r.y + 2.f * k3r.y + k4r.y),
-           r.z + c * (k1r.z + 2.f * k2r.z + 2.f * k3r.z + k4r.z)};
-  k_new = {k.x + c * (k1k.x + 2.f * k2k.x + 2.f * k3k.x + k4k.x),
-           k.y + c * (k1k.y + 2.f * k2k.y + 2.f * k3k.y + k4k.y),
-           k.z + c * (k1k.z + 2.f * k2k.z + 2.f * k3k.z + k4k.z)};
+  r_new = rk4_sum(c, r, k1r, k2r, k3r, k4r);
+  k_new = rk4_sum(c, k, k1k, k2k, k3k, k4k);
 }
 
 __device__ __forceinline__ V3 normalized(V3 e) {
@@ -168,10 +295,12 @@ __device__ __forceinline__ V3 normalized(V3 e) {
 
 // One RK4 step plus its cross-section ratio
 // (tracer.py::_step_with_crosssection and _transverse_basis).
+template <typename Idx>
 __device__ __forceinline__ float step_with_crosssection(
-    const float4* __restrict__ tcube, const TraceParams& p, V3& r, V3& k) {
+    const float4* __restrict__ tcube, const TraceParams& p,
+    RayCache<Idx>& cache, V3& r, V3& k) {
   V3 rn, kn;
-  rk4(tcube, p, r, k, rn, kn);
+  rk4<kCentral>(tcube, p, cache, r, k, rn, kn);
   const V3 rd = sub(rn, r);
   const float dnorm = sqrtf(dot(rd, rd)) + 1e-32f;
   const V3 t = {rd.x / dnorm, rd.y / dnorm, rd.z / dnorm};
@@ -181,8 +310,8 @@ __device__ __forceinline__ float step_with_crosssection(
   const V3 e2 = normalized(cross(t, e1));
   const float eps = p.perturb_ratio * dnorm;
   V3 r1, r2, unused;
-  rk4(tcube, p, axpy(eps, e1, r), k, r1, unused);
-  rk4(tcube, p, axpy(eps, e2, r), k, r2, unused);
+  rk4<kPerturbed>(tcube, p, cache, axpy(eps, e1, r), k, r1, unused);
+  rk4<kPerturbed>(tcube, p, cache, axpy(eps, e2, r), k, r2, unused);
   const V3 cr = cross(sub(r1, rn), sub(r2, rn));
   const float num = fabsf(dot(cr, t));
   r = rn;
@@ -197,12 +326,12 @@ __device__ __forceinline__ float finite_or(float v, float fill) {
 // Record fields at r (sampler.py::sample_model_with_rays and
 // cos_theta_signed): fills outside the cube, NaN kept where the reference
 // keeps it (clamp and max pass NaN through).
-template <int NG>
+template <int NG, typename Idx>
 __device__ __forceinline__ void record(const float4* __restrict__ scube,
                                        const TraceParams& p, V3 r, V3 k,
                                        float cum, float* __restrict__ out,
                                        int64_t n) {
-  Cell c;
+  Cell<Idx> c;
   const bool in = locate(p, r, c);
   const float4 nan4 = make_float4(NAN, NAN, NAN, NAN);
   const float4 s0 = in ? trilerp(scube, NG, 0, p, c) : nan4;
@@ -225,13 +354,14 @@ __device__ __forceinline__ void record(const float4* __restrict__ scube,
   out[7 * n] = cos_t;
 }
 
-template <bool CS, int NG>
+template <bool CS, int NG, typename Idx>
 __global__ void __launch_bounds__(kThreads)
     trace_segment_kernel(const float4* __restrict__ tcube,
                          const float4* __restrict__ scube,
                          const float* __restrict__ state_in,
                          float* __restrict__ state_out,
-                         float* __restrict__ records, TraceParams p) {
+                         float* __restrict__ records, TraceParams p,
+                         unsigned long long* __restrict__ counts) {
   const int ray = blockIdx.x * kThreads + threadIdx.x;
   if (ray >= p.n_rays) return;
   const int64_t n = p.n_rays;
@@ -240,21 +370,24 @@ __global__ void __launch_bounds__(kThreads)
   V3 k = {state_in[3 * n + ray], state_in[4 * n + ray],
           state_in[5 * n + ray]};
   float cum = state_in[6 * n + ray];
+  RayCache<Idx> cache;
+  cache.init();
   for (int b = 0; b < p.rps; ++b) {
     const int steps = b == 0 ? p.n_first : p.stride;
     float acc = 1.f;  // this block's S product, as in tracer.py::do_steps
     for (int s = 0; s < steps; ++s) {
       if (CS) {
-        acc *= step_with_crosssection(tcube, p, r, k);
+        acc *= step_with_crosssection(tcube, p, cache, r, k);
       } else {
         V3 rn, kn;
-        rk4(tcube, p, r, k, rn, kn);
+        rk4<kCentral>(tcube, p, cache, r, k, rn, kn);
         r = rn;
         k = kn;
       }
     }
     if (CS) cum *= acc;
-    record<NG>(scube, p, r, k, cum, records + int64_t(b) * 8 * n + ray, n);
+    record<NG, Idx>(scube, p, r, k, cum, records + int64_t(b) * 8 * n + ray,
+                    n);
   }
   state_out[0 * n + ray] = r.x;
   state_out[1 * n + ray] = r.y;
@@ -263,18 +396,30 @@ __global__ void __launch_bounds__(kThreads)
   state_out[4 * n + ray] = k.y;
   state_out[5 * n + ray] = k.z;
   state_out[6 * n + ray] = cum;
+  if (kCounters) cache.flush(counts);
 }
 
-template <bool CS>
+template <bool CS, typename Idx>
 void launch(const float4* t, const float4* s, const float* in, float* out,
-            float* rec, const TraceParams& p, cudaStream_t stream) {
+            float* rec, const TraceParams& p, unsigned long long* counts,
+            cudaStream_t stream) {
   const dim3 grid((p.n_rays + kThreads - 1) / kThreads);
   if (p.sample_channels == 8)
-    trace_segment_kernel<CS, 2><<<grid, kThreads, 0, stream>>>(t, s, in, out,
-                                                               rec, p);
+    trace_segment_kernel<CS, 2, Idx>
+        <<<grid, kThreads, 0, stream>>>(t, s, in, out, rec, p, counts);
   else
-    trace_segment_kernel<CS, 1><<<grid, kThreads, 0, stream>>>(t, s, in, out,
-                                                               rec, p);
+    trace_segment_kernel<CS, 1, Idx>
+        <<<grid, kThreads, 0, stream>>>(t, s, in, out, rec, p, counts);
+}
+
+template <typename Idx>
+void launch_cs(const float4* t, const float4* s, const float* in, float* out,
+               float* rec, const TraceParams& p, unsigned long long* counts,
+               cudaStream_t stream) {
+  if (p.crosssections)
+    launch<true, Idx>(t, s, in, out, rec, p, counts, stream);
+  else
+    launch<false, Idx>(t, s, in, out, rec, p, counts, stream);
 }
 
 }  // namespace
@@ -282,23 +427,38 @@ void launch(const float4* t, const float4* s, const float* in, float* out,
 // Launch one segment on `stream`; returns cudaGetLastError() (0 = launched).
 // Cubes: (nx, ny, nz, 4) trace and (nx, ny, nz, sample_channels) sample,
 // float32, contiguous. state_in/out: (7, n_rays); records: (rps, 8, n_rays).
+// p.wide_index selects 64-bit cube offsets, which a sample cube of 2^31
+// float4 or more needs. counts: rgrff_cache_counters() zeroed uint64, or
+// null when that is 0.
 extern "C" int rgrff_trace_segment(const void* tcube, const void* scube,
                                    const void* state_in, void* state_out,
                                    void* records, TraceParams p,
-                                   void* stream) {
+                                   void* counts, void* stream) {
   if (p.n_rays <= 0) return 0;
+  const int groups = p.sample_channels / 4;
+  if (!p.wide_index &&
+      int64_t(p.nx) * p.ny * p.nz * groups >= (int64_t(1) << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kCounters && counts == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* t = static_cast<const float4*>(tcube);
   const auto* s = static_cast<const float4*>(scube);
   const auto* in = static_cast<const float*>(state_in);
   auto* out = static_cast<float*>(state_out);
   auto* rec = static_cast<float*>(records);
+  auto* cnt = static_cast<unsigned long long*>(counts);
   auto st = static_cast<cudaStream_t>(stream);
-  if (p.crosssections)
-    launch<true>(t, s, in, out, rec, p, st);
+  if (p.wide_index)
+    launch_cs<int64_t>(t, s, in, out, rec, p, cnt, st);
   else
-    launch<false>(t, s, in, out, rec, p, st);
+    launch_cs<int>(t, s, in, out, rec, p, cnt, st);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Number of uint64 counters rgrff_trace_segment fills: 4 in a build with
+// RGRFF_COUNT_CACHE (central evaluations, central misses, perturbed
+// evaluations, perturbed misses), else 0.
+extern "C" int rgrff_cache_counters() { return kCounters; }
 
 extern "C" const char* rgrff_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

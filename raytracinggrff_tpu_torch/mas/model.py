@@ -199,7 +199,7 @@ class MASModel:
 
 
 def resample_var_to_cube(var: MASVariable, grid: UniformGrid,
-                         phi0_offset_deg=0.0, fill_nan=0.0, device="cpu",
+                         phi0_offset_deg=0.0, fill_nan=0.0, device="cuda",
                          chunk=16):
     """Resample a MAS variable onto the uniform cube with the reference's
     orientation cart_to_sph(x, -z, y, phi0) and the r >= R_MIN mask

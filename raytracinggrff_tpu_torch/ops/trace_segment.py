@@ -42,13 +42,18 @@ from .trilinear import trilinear_packed
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-# -fmad=false keeps nvcc from contracting a*b+c, so the kernel rounds as
-# the plain version's separate torch ops do and its records equal them
-# bit for bit. Gyroresonance maps need that: their point-sampled harmonic
-# layers move V/I by 2e-4 under 1e-7 relative input noise (PERF.md).
+# The shipped build lets nvcc contract a*b+c into FMAs: the kernel's time
+# is its arithmetic, not its loads, and on an H100 80GB HBM3 at 700 W
+# contraction takes the canonical segment from 4.95-5.00 to 4.18-4.21 ms
+# (profile_slice.py phase cache, PERF.md). Its records hold every bar of
+# chip_smoke.py, phase 7's gyroresonance bar included. EXACT_NVCC_FLAGS
+# adds -fmad=false: that build rounds as the plain version's separate
+# torch ops do, its records equal theirs bit for bit, and the CUDA tests
+# hold it to that.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v", "-fmad=false")
+              "-Xptxas", "-v")
+EXACT_NVCC_FLAGS = NVCC_FLAGS + ("-fmad=false",)
 STATE_ROWS = 7
 RECORD_ROWS = 8
 
@@ -60,7 +65,7 @@ class _TraceParams(ctypes.Structure):
         "inv_dx", "inv_dy", "inv_dz", "fill_ne", "fill_te", "fill_b")] + [
         (name, ctypes.c_int) for name in (
             "nx", "ny", "nz", "n_rays", "n_first", "stride", "rps",
-            "crosssections", "sample_channels")]
+            "crosssections", "sample_channels", "wide_index")]
 
 
 def _nvcc():
@@ -113,8 +118,11 @@ def load_library(path):
     lib = ctypes.CDLL(str(path))
     lib.rgrff_trace_segment.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, _TraceParams, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, _TraceParams, ctypes.c_void_p,
+        ctypes.c_void_p]
     lib.rgrff_trace_segment.restype = ctypes.c_int
+    lib.rgrff_cache_counters.argtypes = []
+    lib.rgrff_cache_counters.restype = ctypes.c_int
     lib.rgrff_error_string.argtypes = [ctypes.c_int]
     lib.rgrff_error_string.restype = ctypes.c_char_p
     return lib
@@ -125,6 +133,12 @@ def grid_param_vec(grid: UniformGrid):
     sampler's Python-float arithmetic rounds to (ops/pallas_trace.py:602)."""
     return np.concatenate([np.asarray(grid.origin, np.float32),
                            np.asarray(grid.inv_steps, np.float32)])
+
+
+def needs_wide_index(n_voxels, sample_channels):
+    """Whether the sample cube, the larger of the two, holds 2^31 float4
+    or more, so that the kernel needs 64-bit cube offsets."""
+    return n_voxels * (sample_channels // 4) >= 2 ** 31
 
 
 def _check(tcube, scube, state, grid, n_first, stride, rps):
@@ -171,24 +185,37 @@ def trace_segment(tcube, scube, state, grid: UniformGrid, dt, n_first,
     records = torch.empty((rps, RECORD_ROWS, n_rays), dtype=torch.float32,
                           device=state.device)
     g = grid_param_vec(grid)
+    channels = scube.shape[3]
     params = _TraceParams(
         float(np.float32(dt)), float(np.float32(C_R)),
         float(np.float32(perturb_ratio)), *map(float, g),
         FILL_NE, FILL_TE, FILL_B, grid.nx, grid.ny, grid.nz, n_rays,
-        n_first, stride, rps, int(bool(crosssections)), scube.shape[3])
+        n_first, stride, rps, int(bool(crosssections)), channels,
+        int(needs_wide_index(grid.nx * grid.ny * grid.nz, channels)))
+    n_counts = lib.rgrff_cache_counters()
+    counts = (torch.zeros(n_counts, dtype=torch.int64, device=state.device)
+              if n_counts else None)
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rgrff_trace_segment(
             tcube.data_ptr(), scube.data_ptr(), state.data_ptr(),
-            state_out.data_ptr(), records.data_ptr(), params, stream)
+            state_out.data_ptr(), records.data_ptr(), params,
+            None if counts is None else counts.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("trace-segment kernel launch failed: "
                            + lib.rgrff_error_string(err).decode())
     trace_segment.launches += 1
+    if counts is not None:
+        prev = trace_segment.cache_counts
+        trace_segment.cache_counts = counts if prev is None else prev + counts
     return state_out, records
 
 
 trace_segment.launches = 0
+# [central evaluations, central misses, perturbed evaluations, perturbed
+# misses] summed over launches, kept only by a library built with
+# -DRGRFF_COUNT_CACHE (profile_slice.py); None otherwise
+trace_segment.cache_counts = None
 
 
 def trace_segment_plain(tcube, scube, state, grid: UniformGrid, dt, n_first,

@@ -3,6 +3,8 @@ the JAX package, and its constants, grid axes, ray starts and config
 match the JAX package's."""
 
 import dataclasses
+import importlib
+import inspect
 import re
 import subprocess
 import sys
@@ -17,6 +19,8 @@ from raytracinggrff_tpu.grids import UniformGrid as JaxGrid
 from raytracinggrff_tpu.pipeline import RayEmissionConfig as JaxConfig
 from raytracinggrff_tpu.pipeline import image_ray_starts as jax_starts
 import raytracinggrff_tpu_torch.constants as pconst
+import raytracinggrff_tpu_torch.mas.model as pmodel
+import raytracinggrff_tpu_torch.pipeline as ppipeline
 from raytracinggrff_tpu_torch.grids import UniformGrid
 from raytracinggrff_tpu_torch.pipeline import (TPU_ONLY_FIELDS,
                                                RayEmissionConfig,
@@ -70,6 +74,23 @@ def test_card_script_imports_no_jax_and_needs_cuda(script):
     proc = subprocess.run([sys.executable, script], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 1 and proc.stdout == "", proc.stderr
+
+
+@pytest.mark.parametrize("name", ["run_ray_tracing_emission",
+                                  "prepare_cubes", "resample_var_to_cube",
+                                  "resample_mas_los", "synthetic_ff"])
+def test_entry_points_default_to_cuda(name):
+    module = pmodel if name == "resample_var_to_cube" else ppipeline
+    param = inspect.signature(getattr(module, name)).parameters["device"]
+    assert param.default == "cuda", name
+
+
+@pytest.mark.parametrize("cli", ["ray_tracing_emission", "resample_los",
+                                 "synthetic_ff", "compare_los_raytracing"])
+def test_cli_device_defaults_to_cuda(cli):
+    parser = importlib.import_module(
+        f"raytracinggrff_tpu_torch.cli.{cli}").build_parser()
+    assert parser.get_default("device") == "cuda", cli
 
 
 def test_constants_equal_jax():

@@ -229,10 +229,26 @@ def test_wrapper_dispatches_cpu_to_plain_and_checks_inputs():
         trace_segment(*args[:5], 0, 10, 2)
 
 
-def test_kernel_builds_without_fma_contraction():
-    """The kernel must round as the plain version's separate torch ops do:
-    gyroresonance maps move V/I by more than 1e-4 under rounding-level
-    differences in the records, so nvcc may not fuse a*b+c."""
-    from raytracinggrff_tpu_torch.ops.trace_segment import NVCC_FLAGS
-    assert "-fmad=false" in NVCC_FLAGS
-    assert "--use_fast_math" not in NVCC_FLAGS
+def test_exact_build_only_adds_fmad_false_and_no_build_loosens_ieee():
+    """The kernel has an exact build without FMA contraction
+    (EXACT_NVCC_FLAGS, -fmad=false) that rounds as the plain version's
+    separate torch ops do, and which the CUDA tests hold to the plain
+    version bit for bit. The shipped build (NVCC_FLAGS) does contract: it
+    differs from the exact build only by -fmad=false, and neither build
+    loosens IEEE division, square root or denormals."""
+    from raytracinggrff_tpu_torch.ops.trace_segment import (EXACT_NVCC_FLAGS,
+                                                            NVCC_FLAGS)
+    assert EXACT_NVCC_FLAGS == NVCC_FLAGS + ("-fmad=false",)
+    loose = {"--use_fast_math", "-use_fast_math", "-ftz=true",
+             "-prec-div=false", "-prec-sqrt=false", "-fmad=true"}
+    assert not loose & set(EXACT_NVCC_FLAGS)
+
+
+@pytest.mark.parametrize("n,channels,wide", [
+    (576, 8, False), (1024, 4, False), (1024, 8, True), (1291, 4, True)])
+def test_wide_index_only_for_cubes_of_2_31_float4(n, channels, wide):
+    """The kernel's cube offsets count float4 elements: 32-bit ones reach
+    the sample cube's last element below 2^31 of them (a 576^3 x 8-channel
+    cube holds 3.8e8), 64-bit ones above."""
+    from raytracinggrff_tpu_torch.ops.trace_segment import needs_wide_index
+    assert needs_wide_index(n ** 3, channels) is wide
