@@ -7,9 +7,10 @@ Builds the trace-segment kernel from raytracinggrff_tpu_torch/csrc, holds
 it against its plain PyTorch version on the card, drives the production
 emission map (256^2 rays x 5000 steps x 128^3 cube at 75 MHz, nfreq 3,
 cross-sections and S input on) through run_ray_tracing_emission, and checks
-the map; then drives the straight-LOS chain, the gyroresonance map and the
-low-band LOS vs ray-tracing comparison at the defaults of their CLIs.
-Phases:
+the map; then drives the straight-LOS chain, the gyroresonance map, the
+low-band LOS vs ray-tracing comparison, per-step cross-sections, three
+maps of the TbSpectra sweep and the other device CLIs at the defaults of
+their CLIs. Phases:
   1. versions, card, kernel build
   2. kernel vs plain on a non-reflecting scene, every ray within tolerance
   3. kernel vs plain on the canonical scene's first segment (>= 99% of
@@ -25,6 +26,18 @@ Phases:
      (DV_BAR_GR)
   8. compare_los_raytracing's low band: 30, 60 and 120 MHz, 128^2 pixels,
      a 256^3 cube at extent 4
+  9. s_mode='per_step': kernel vs plain on phase 2's scene (every ray
+     within tolerance, row 3 unlike the cumulative records), and the
+     n_pix 32 map with S input, kernel vs plain under DV_BAR_FIXED
+ 10. the TbSpectra sweep (cli/tb_spectra.run_sweep at its CLI defaults:
+     128^2 pixels, phi0 -140, lattice presets) at indices 0, 16 and 29 of
+     its 30 frequencies (30, 183.6 and 800 MHz; the last on a 576^3 cube),
+     with stage times and peak device memory, and each map's first
+     segment kernel vs plain (>= 99% of rays within tolerance)
+ 11. the other device CLIs at their defaults: bench, demo_rays (cross-
+     sections off), compare_s_input and plot_model_slices.sample_plane;
+     the first segment of bench (>= 99% of rays) and of demo_rays (every
+     ray) kernel vs plain
 Each path that traces rays runs with the launch count set to 0 just
 before it and checks it against its segment count just after.
 The last lines are one JSON object per kernel, the card's name and power
@@ -153,15 +166,6 @@ def canonical_scene(n_pix=256):
     return grid, t, start, kdir
 
 
-def initial_state(tcube, grid, freq, start, kdir):
-    from raytracinggrff_tpu_torch.tracer import init_k_vectors
-    start = torch.as_tensor(start, device="cuda")
-    kdir = torch.as_tensor(kdir, device="cuda")
-    k0 = init_k_vectors(tcube.reshape(-1, 4), grid, freq, start, kdir)
-    ones = torch.ones((1, start.shape[0]), device="cuda")
-    return torch.cat([start.T, k0.T, ones]).contiguous()
-
-
 @contextlib.contextmanager
 def plain_segments():
     """Route the segment driver through the plain version on CUDA tensors
@@ -174,6 +178,50 @@ def plain_segments():
         yield
     finally:
         tracer_segments.trace_segment = saved
+
+
+@contextlib.contextmanager
+def first_segments(keep_cubes=False):
+    """Record, in order, the arguments of each trace_segment launch of
+    tracer_segments that starts a trace (n_first == 1) while the block
+    runs; the cubes only with keep_cubes (else None), so that a sweep need
+    not keep every map's cube set alive. The launches run and count as
+    usual."""
+    from raytracinggrff_tpu_torch import tracer_segments
+    launch = tracer_segments.trace_segment
+    seen = []
+
+    def spy(tcube, scube, *rest):
+        if rest[3] == 1:
+            seen.append((tcube, scube, *rest) if keep_cubes
+                        else (None, None, *rest))
+        return launch(tcube, scube, *rest)
+
+    tracer_segments.trace_segment = spy
+    try:
+        yield seen
+    finally:
+        tracer_segments.trace_segment = launch
+
+
+def hold_segment(tag, what, args, min_share):
+    """One segment's arguments through the kernel and through the plain
+    version: at least min_share of the rays within ROW_TOL (1.0, or 0.99
+    where rays reflect and may part after many steps). Returns the
+    kernel's records and the max |diff| per row."""
+    from raytracinggrff_tpu_torch.ops.trace_segment import (
+        trace_segment, trace_segment_plain)
+    _, rec_k = trace_segment(*args)
+    _, rec_p = trace_segment_plain(*args)
+    ok, worst = compare_records(rec_k, rec_p)
+    n_first, stride = args[5], args[6]
+    steps = n_first + (rec_k.shape[0] - 1) * stride
+    say(f"[{tag}] {what} ({ok.size} rays, {steps} steps, "
+        f"{'x'.join(map(str, args[0].shape[:3]))} cube): kernel vs plain, "
+        f"{ok.mean():.5f} of rays within tolerance; max |diff| per row "
+        f"{['%.3g' % w for w in worst]}")
+    assert ok.mean() >= min_share, f"only {ok.mean():.4f} of rays agree"
+    return rec_k, worst
 
 
 def phase_build():
@@ -191,10 +239,12 @@ def phase_build():
             say(f"    ptxas: {line.strip()}")
 
 
-def phase_small(out):
-    from raytracinggrff_tpu_torch.ops.trace_segment import (
-        trace_segment, trace_segment_plain)
-    from raytracinggrff_tpu_torch.tracer_segments import prepare_trace_inputs
+def small_segment_args():
+    """Phase 2's segment on the bundle scene, 4096 rays with 8 frozen
+    out-of-cube ones, 31 records: the kernel arguments for the 4- and the
+    8-channel sample cube."""
+    from raytracinggrff_tpu_torch.tracer_segments import (initial_state,
+                                                          prepare_trace_inputs)
     grid, f = bundle_scene()
     rng = np.random.default_rng(0)
     n = 4096
@@ -203,22 +253,40 @@ def phase_small(out):
                              np.full(n, 1.9)]).astype(np.float32)
     start[:8, 0] = 50.0                     # frozen out-of-cube rays
     kdir = np.tile(np.float32([[0.0, 0.0, -1.0]]), (n, 1))
-    worst_r = 0.0
     for bvec in (None, (f["bx"], f["by"], f["bz"])):
         tcube, scube = prepare_trace_inputs(f["wpe"], f["ne"], f["te"],
                                             f["b"], grid, bvec)
         state = initial_state(tcube, grid, 80e6, start, kdir)
-        args = (tcube, scube, state, grid, 5e-3, 1, 10, 31)
-        _, rec_k = trace_segment(*args)
-        _, rec_p = trace_segment_plain(*args)
+        yield tcube, scube, state, grid, 5e-3, 1, 10, 31
+
+
+def phase_small(out, tag="2", s_mode="cumulative"):
+    """Kernel vs plain on small_segment_args, every ray within ROW_TOL;
+    with per-step S, row 3 also differs from the cumulative kernel's on
+    most live records. Keeps the largest difference in positions and, with
+    per-step S, in row 3 in out["max_abs_err"]."""
+    from raytracinggrff_tpu_torch.ops.trace_segment import (
+        trace_segment, trace_segment_plain)
+    worst_r = out.get("max_abs_err", 0.0)
+    for args in small_segment_args():
+        n = args[2].shape[1]
+        _, rec_k = trace_segment(*args, s_mode=s_mode)
+        _, rec_p = trace_segment_plain(*args, s_mode=s_mode)
         torch.cuda.synchronize()
         ok, worst = compare_records(rec_k, rec_p)
-        nch = scube.shape[3]
-        say(f"[2] {nch}-channel: {ok.sum()}/{n} rays within tolerance; "
-            f"max |diff| per row {['%.3g' % w for w in worst]}")
+        nch = args[1].shape[3]
+        say(f"[{tag}] {nch}-channel, {s_mode} S: {ok.sum()}/{n} rays within "
+            f"tolerance; max |diff| per row {['%.3g' % w for w in worst]}")
         assert ok.all(), f"{(~ok).sum()} rays outside tolerance ({nch} ch)"
         assert torch.all(rec_k[-1, 3, :8] < 1e-6), "frozen rays kept S"
-        worst_r = max(worst_r, *worst[:3])
+        if s_mode == "per_step":
+            _, rec_c = trace_segment(*args)
+            live = rec_c[1:, 3] > 0
+            differ = (rec_k[1:, 3] != rec_c[1:, 3])[live].double().mean()
+            say(f"[{tag}] row 3 differs from the cumulative records on "
+                f"{float(differ):.5f} of {int(live.sum())} live records")
+            assert differ > 0.9, float(differ)
+        worst_r = max(worst_r, *worst[:4 if s_mode == "per_step" else 3])
     out["max_abs_err"] = worst_r
 
 
@@ -245,20 +313,14 @@ def segment_bound_ms(tcube, scube, state, rec, n_first, stride):
 def phase_canonical(out):
     from raytracinggrff_tpu_torch.ops.trace_segment import (
         trace_segment, trace_segment_plain)
-    from raytracinggrff_tpu_torch.tracer_segments import prepare_trace_inputs
+    from raytracinggrff_tpu_torch.tracer_segments import (initial_state,
+                                                          prepare_trace_inputs)
     grid, f, start, kdir = canonical_scene()
     tcube, scube = prepare_trace_inputs(f["wpe"], f["ne"], f["te"], f["b"],
                                         grid)
     state = initial_state(tcube, grid, 75e6, start, kdir)
     args = (tcube, scube, state, grid, 6e-3, 1, 10, 64)
-    _, rec_k = trace_segment(*args)
-    _, rec_p = trace_segment_plain(*args)
-    ok, worst = compare_records(rec_k, rec_p)
-    frac = ok.mean()
-    say(f"[3] canonical first segment (65536 rays, 631 steps): "
-        f"{frac:.5f} of rays within tolerance; max |diff| per row "
-        f"{['%.3g' % w for w in worst]}")
-    assert frac >= 0.99, f"only {frac:.4f} of rays agree"
+    rec_k, _ = hold_segment("3", "canonical first segment", args, 0.99)
     ms = cuda_ms(lambda: trace_segment(*args), reps=5)
     plain_ms = cuda_ms(lambda: trace_segment_plain(*args), reps=1)
     bound_ms, bound_by = segment_bound_ms(tcube, scube, state, rec_k, 1, 10)
@@ -319,10 +381,14 @@ def map_kernel_vs_plain(tag, cubes, bar, device="cuda", **overrides):
     DV_BAR_FIXED and DV_BAR_GR."""
     from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
                                                    run_ray_tracing_emission)
+    from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
     cfg = RayEmissionConfig(**dict(SLICE, n_pix=32, n_steps=600, nfreq=2,
                                    **overrides))
+    trace_segment.launches = 0
     r_k = run_ray_tracing_emission(cubes=cubes, config=cfg, verbose=False,
                                    device=device)
+    launches = trace_segment.launches
+    assert launches == n_segments(cfg), (launches, n_segments(cfg))
     with plain_segments():
         r_p = run_ray_tracing_emission(cubes=cubes, config=cfg,
                                        verbose=False, device=device)
@@ -333,7 +399,8 @@ def map_kernel_vs_plain(tag, cubes, bar, device="cuda", **overrides):
                 - r_p["emission_polVI_cube"][lit])
     p99 = np.percentile(dv, 99)
     above = int((dv > 1e-4).sum())
-    say(f"[{tag}] map kernel vs plain: {lit.sum()} lit values, max rel T_b "
+    say(f"[{tag}] map kernel vs plain ({cfg.s_mode} S, {launches} kernel "
+        f"launch(es)): {lit.sum()} lit values, max rel T_b "
         f"diff {rel.max():.3g}, |V/I diff| max {dv.max():.3g}, p99 "
         f"{p99:.3g}, {above} above 1e-4 (bar: max {bar[0]:g}, p99 "
         f"{bar[1]:g}, share above 1e-4 {bar[2]:g})")
@@ -351,6 +418,15 @@ def phase_map():
         cubes = prepare_cubes(model, UniformGrid.cube(3.0, 128), 0.0,
                               verbose=False, device="cuda")
     map_kernel_vs_plain("5", cubes, DV_BAR_FIXED)
+    return cubes
+
+
+def phase_per_step(out, cubes):
+    """s_mode='per_step' through the kernel: phase 2's segment, then phase
+    5's map with S input (each record's area is its last step's S times
+    the pixel area)."""
+    phase_small(out, "9", "per_step")
+    map_kernel_vs_plain("9", cubes, DV_BAR_FIXED, s_mode="per_step")
 
 
 def n_segments(cfg):
@@ -482,6 +558,158 @@ def phase_compare(tmp, n_pix=128, grid_n=256, freqs=(30e6, 60e6, 120e6),
     return out
 
 
+SWEEP_INDICES = (0, 16, 29)
+
+
+def phase_sweep(tmp, indices=SWEEP_INDICES, compare=SWEEP_INDICES,
+                n_pix=128, device="cuda"):
+    """The TbSpectra sweep's maps at `indices` of its 30 default
+    frequencies, through one run_sweep at the CLI defaults (phi0 -140,
+    lattice presets), so that maps that share a cube set reuse it as the
+    CLI does. Per map: its preset, stage times and peak device memory,
+    every T_b finite, the on-disk median in 1e4..3e6 K and the share of
+    on-disk values outside that range; over the run, kernel launches =
+    segments. Then each map at `compare` has its first segment (the
+    sweep's own rays, state, stride and records per segment, on its cube
+    set made anew) held kernel vs plain as phase 3 holds the canonical
+    one. Returns (the per-map timings dicts, the run's wall seconds)."""
+    from raytracinggrff_tpu_torch.cli.tb_spectra import (run_sweep,
+                                                         sweep_frequencies)
+    from raytracinggrff_tpu_torch.mas.model import (MASModel,
+                                                    synthetic_mas_model)
+    from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
+    from raytracinggrff_tpu_torch.pipeline import prepare_cubes
+    from raytracinggrff_tpu_torch.tracer_segments import prepare_trace_inputs
+    model = synthetic_mas_model(Path(tmp) / "corona_sweep")
+    freqs = sweep_frequencies()[list(indices)]
+    timings = []
+    with first_segments() as firsts:
+        trace_segment.launches = 0
+        t0 = time.perf_counter()
+        rows = run_sweep(model, freqs, Path(tmp) / "mfs", n_pix=n_pix,
+                         phi0_offset=-140.0, device=device, timings=timings,
+                         verbose=False)
+        wall = time.perf_counter() - t0
+        launches = trace_segment.launches
+    segments = sum(t["segments"] for t in timings)
+    say(f"[10] {len(rows)} map(s): wall {wall:.3f} s; kernel launches "
+        f"{launches} = segments {segments}")
+    assert launches == segments, (launches, segments)
+    assert len(firsts) == len(timings), (len(firsts), len(timings))
+    for i, t, row in zip(indices, timings, rows):
+        peak = ("not measured on the CPU" if t["peak_bytes"] is None
+                else f"{t['peak_bytes'] / 2 ** 30:.3f} GiB")
+        tb = np.load(row["npz"])["emission_cube"][:, :, 0]
+        assert tb.shape == (n_pix, n_pix) and np.all(np.isfinite(tb))
+        vals = tb[disk_mask(n_pix, t["x_fov"])]
+        med = float(np.median(vals))
+        off = float(np.mean((vals <= 1e4) | (vals >= 3e6)))
+        say(f"[10] index {i}: {t['freq_hz'] / 1e6:.3f} MHz, {t['grid_n']}^3 "
+            f"at extent {t['grid_extent']}, {t['n_steps']} steps, stride "
+            f"{t['record_stride']}, {t['records']} records; resample "
+            f"{t['resample']:.4f} s, trace {t['trace']:.4f} s, transfer "
+            f"{t['transfer']:.4f} s, finish {t['finish']:.4f} s, segments "
+            f"{t['segments']}; peak device memory {peak}; on-disk T_b median "
+            f"{med:.4g} K, min {vals.min():.4g}, max {vals.max():.4g}, "
+            f"{off:.5f} of {vals.size} values outside 1e4..3e6 K")
+        assert 1e4 < med < 3e6, med
+        t.update(index=i, median=med, off_range=off)
+    for i, first in zip(indices, firsts):
+        if i not in compare:
+            continue
+        grid = first[3]
+        cubes = prepare_cubes(MASModel(model), grid, -140.0, verbose=False,
+                              device=device)
+        tcube, scube = prepare_trace_inputs(cubes["omega_pe"], cubes["ne"],
+                                            cubes["te"], cubes["b"], grid)
+        del cubes
+        hold_segment("10", f"index {i}: first segment", (tcube, scube,
+                                                         *first[2:]), 0.99)
+        del tcube, scube
+    return timings, wall
+
+
+def phase_cli(tmp, device="cuda"):
+    """bench, demo_rays, compare_s_input and sample_plane at their CLI
+    defaults, with the kernel launches of each traced path; the first
+    segment of bench's trace and of demo_rays' is held kernel vs plain."""
+    from raytracinggrff_tpu_torch.cli import bench, compare_s_input
+    from raytracinggrff_tpu_torch.cli.demo_rays import (build_parser,
+                                                        trace_demo_rays)
+    from raytracinggrff_tpu_torch.cli.plot_model_slices import sample_plane
+    from raytracinggrff_tpu_torch.mas.model import (MASModel,
+                                                    synthetic_mas_model)
+    from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
+    from raytracinggrff_tpu_torch.tracer_segments import segment_plan
+    model = synthetic_mas_model(Path(tmp) / "corona_cli")
+
+    say("[11] bench (256^2 rays x 1000 trace steps on 128^3; 256^2 x 256 "
+        "LOS samples), its two lines:")
+    with first_segments(keep_cubes=True) as firsts:
+        trace_segment.launches = 0
+        t0 = time.perf_counter()
+        bench.main(["--device", device])
+        wall = time.perf_counter() - t0
+        launches = trace_segment.launches
+    runs = 1 + bench.build_parser().get_default("repeat")
+    expect = runs * len(segment_plan(1000, 10, 64)[0])
+    say(f"[11] bench: {wall:.3f} s; kernel launches {launches} = {runs} "
+        f"traces x segments")
+    assert launches == expect, launches
+    hold_segment("11", "bench's first segment", firsts[0], 0.99)
+    del firsts
+
+    args = build_parser().parse_args(["-m", str(model), "-q", "--device",
+                                      device])
+    with first_segments(keep_cubes=True) as firsts:
+        trace_segment.launches = 0
+        t0 = time.perf_counter()
+        omega_pe, grid, rec = trace_demo_rays(args)
+        wall = time.perf_counter() - t0
+        launches = trace_segment.launches
+    n_seg = len(segment_plan(args.n_steps, args.record_stride, 64)[0])
+    lo, hi = args.grid_min, args.grid_max
+    inside = np.all((rec >= lo) & (rec <= hi), axis=2)
+    say(f"[11] demo_rays {args.grid_n}^3, {args.n_rays} rays x "
+        f"{args.n_steps} steps, cross-sections off: {wall:.3f} s; records "
+        f"{rec.shape}, finite {np.isfinite(rec).mean():.5f}, inside the "
+        f"cube {inside.mean():.5f}; x span {np.ptp(rec[:, :, 0]):.4f} R_sun;"
+        f" kernel launches {launches} = segments {n_seg}")
+    assert launches == n_seg, launches
+    assert np.isfinite(rec).all(), "a frozen ray's position went NaN"
+    assert np.ptp(rec[:, :, 0]) > 1.0
+    hold_segment("11", "demo_rays' first segment, cross-sections off",
+                 firsts[0], 1.0)
+    del omega_pe, firsts
+
+    out_dir = Path(tmp) / "cmp_s"
+    trace_segment.launches = 0
+    t0 = time.perf_counter()
+    say("[11] compare_s_input (100^2 pixels, 150^3, 60 MHz, 5000 steps), "
+        "its statistics:")
+    compare_s_input.main(["-m", str(model), "-o", str(out_dir), "--no-plot",
+                          "-q", "--device", device])
+    wall = time.perf_counter() - t0
+    n_seg = 2 * len(segment_plan(5000, 10, 64)[0])
+    say(f"[11] compare_s_input: {wall:.3f} s; kernel launches "
+        f"{trace_segment.launches} = 2 maps x segments")
+    assert trace_segment.launches == n_seg, trace_segment.launches
+    for name in ("on", "off"):
+        tb = np.load(out_dir / f"ray_tracing_compare_s_{name}.npz")
+        assert np.all(np.isfinite(tb["emission_cube"])), name
+
+    t0 = time.perf_counter()
+    plane = sample_plane(MASModel(model), n_pix=512, device=device)
+    wall = time.perf_counter() - t0
+    for key in ("ne", "te", "b"):
+        assert plane[key].shape == (512, 512), key
+        assert np.all(np.isfinite(plane[key]) & (plane[key] > 0)), key
+    say(f"[11] sample_plane 512^2: {wall:.3f} s; ne "
+        f"{plane['ne'].min():.4g}..{plane['ne'].max():.4g} cm^-3, te "
+        f"{plane['te'].min():.4g}..{plane['te'].max():.4g} K, |B| "
+        f"{plane['b'].min():.4g}..{plane['b'].max():.4g} G")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -496,11 +724,17 @@ def main():
         phase_canonical(out)
         with tempfile.TemporaryDirectory() as tmp:
             phase_main(out, tmp)
-        phase_map()
+        cubes = phase_map()
         with tempfile.TemporaryDirectory() as tmp:
             phase_los(tmp)
             phase_gyro(tmp)
             phase_compare(tmp)
+        phase_per_step(out, cubes)
+        del cubes
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_sweep(tmp)
+            phase_cli(tmp)
     say(f"total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": [{
         "name": "trace_segment", "route": "cuda", "source": KERNEL_SOURCE,

@@ -2,7 +2,8 @@
 """Measurements of the PyTorch/CUDA port on one NVIDIA GPU, beyond the
 pass/fail checks of chip_smoke.py.
 
-    python3 profile_slice.py          # from the repository root, on a card
+    python3 profile_slice.py [phase ...]   # from the repository root
+                                           # on a card; default: all
 
   1. spread: the production slice of chip_smoke.py (256^2 rays x 5000
      steps x 128^3 cube, nfreq 3) from a synthetic MAS model; one warm-up
@@ -33,6 +34,16 @@ pass/fail checks of chip_smoke.py.
      multiplied by (1 + 1e-7 N(0,1)), and the map through the shipped
      build and its -fmad=false twin. For each: lit values, max rel T_b,
      max and 99th percentile of |dV/I| and the count above 1e-4.
+  5. s_mode: the shipped build's canonical first segment with cumulative
+     and with per-step S, timed in turns (median of 6 timings of 10
+     launches), beside ptxas's registers and spills for each
+     instantiation of the kernel; the two modes' records equal outside
+     row 3 and their end states equal.
+  6. sweep: the whole TbSpectra sweep (chip_smoke.py's phase 10 at all
+     30 frequencies: one cli/tb_spectra.run_sweep at its CLI defaults,
+     lattice presets, no pngs) from a synthetic MAS model: per frequency
+     the preset, records, stage times, segments and peak device memory;
+     the sweep's wall time, records, segments and kernel launches.
 The card's name and power limit are printed first and last. Without a
 CUDA device it exits 1.
 """
@@ -52,11 +63,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import chip_smoke
 from chip_smoke import (SLICE, canonical_scene, compare_records, cuda_ms,
-                        initial_state, plain_segments, say,
-                        segment_bound_ms, smi_line)
+                        plain_segments, say, segment_bound_ms, smi_line)
 
 STAGES = ("wall", "resample", "trace", "transfer", "finish")
+PHASES = ("spread", "profile", "cache", "floor", "s_mode", "sweep")
 # phase cache: flags added to NVCC_FLAGS for each build; "shipped" adds
 # none, and "shipped_nofma" is EXACT_NVCC_FLAGS
 CACHE_VARIANTS = {
@@ -97,17 +109,18 @@ def build_all(flag_sets):
     return libs
 
 
-def sass_mix(lib, top=16):
-    """Static SASS opcode counts (cuobjdump -sass) of the library's
-    cross-section, 4-channel, 32-bit-offset kernel, the main path's. Its
-    step loop is straight-line code, so the counts are about one step's
-    instruction mix plus one record."""
+def sass_mix(lib, top=16, kernel="ILb1ELb0ELi1EiE"):
+    """Static SASS opcode counts (cuobjdump -sass) of one instantiation of
+    the library's kernel, by default the main path's: cross-sections,
+    cumulative S, 4 channels, 32-bit offsets. Its step loop is
+    straight-line code, so the counts are about one step's instruction mix
+    plus one record."""
     from raytracinggrff_tpu_torch.ops import trace_segment as ts
     cuobjdump = Path(ts._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", lib._name],
                           capture_output=True, text=True, check=True).stdout
     body = next(sec for sec in sass.split("Function : ")
-                if sec.startswith("_Z") and "kernelILb1ELi1EiE" in
+                if sec.startswith("_Z") and f"kernel{kernel}E" in
                 sec.split()[0])
     ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
                      body)
@@ -132,7 +145,8 @@ def uniform_scene(n_pix):
     same 8 voxels, one 128-byte line."""
     from raytracinggrff_tpu_torch.grids import UniformGrid
     from raytracinggrff_tpu_torch.pipeline import image_ray_starts
-    from raytracinggrff_tpu_torch.tracer_segments import prepare_trace_inputs
+    from raytracinggrff_tpu_torch.tracer_segments import (initial_state,
+                                                          prepare_trace_inputs)
     grid = UniformGrid.cube(3.0, 2)
     full = torch.full(grid.shape, 1.0, device="cuda")
     tcube, scube = prepare_trace_inputs(full * (np.pi * 75e6), full * 1e8,
@@ -143,7 +157,8 @@ def uniform_scene(n_pix):
 
 
 def canonical_args(n_pix):
-    from raytracinggrff_tpu_torch.tracer_segments import prepare_trace_inputs
+    from raytracinggrff_tpu_torch.tracer_segments import (initial_state,
+                                                          prepare_trace_inputs)
     grid, f, start, kdir = canonical_scene(n_pix)
     tcube, scube = prepare_trace_inputs(f["wpe"], f["ne"], f["te"], f["b"],
                                         grid)
@@ -335,7 +350,91 @@ def phase_floor(libs):
                           run(cubes), ref)
 
 
-def main():
+def ptxas_usage(log):
+    """{kernel template arguments: ptxas usage line} from a build log, for
+    the trace_segment_kernel instantiations (e.g. 'ILb1ELb0ELi1EiE':
+    cross-sections, cumulative S, 4 channels, 32-bit offsets)."""
+    usage, current, spills = {}, None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*trace_segment_kernel"
+                      r"(I\w+?E)Ev", line)
+        if m:
+            current, spills = m.group(1), ""
+        elif current and "spill" in line:
+            spills = line.strip()
+        elif current and "Used" in line and "registers" in line:
+            usage[current] = (line.split("info    :")[-1].strip() + "; "
+                              + spills)
+            current = None
+    return usage
+
+
+def phase_s_mode():
+    from raytracinggrff_tpu_torch.ops import trace_segment as ts
+    _, log = ts.build_library()
+    usage = ptxas_usage(log)
+    for name, line in sorted(usage.items()):
+        say(f"[s_mode] ptxas {name}: {line}")
+    for name in ("ILb1ELb0ELi1EiE", "ILb1ELb1ELi1EiE"):
+        total, top = sass_mix(ts._library(), top=6, kernel=name)
+        say(f"[s_mode] SASS {name}: {total} instructions; "
+            + ", ".join(f"{op} {n}" for op, n in top))
+    tcube, scube, state, grid = canonical_args(256)
+    args = (tcube, scube, state, grid, 6e-3, 1, 10, 64)
+    modes = ("cumulative", "per_step")
+    times = {m: [] for m in modes}
+    for turn in range(6):
+        for m in (modes if turn % 2 == 0 else modes[::-1]):
+            times[m].append(cuda_ms(
+                lambda: ts.trace_segment(*args, s_mode=m), reps=10))
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    st_c, rec_c = ts.trace_segment(*args)
+    st_p, rec_p = ts.trace_segment(*args, s_mode="per_step")
+    rows = [0, 1, 2, 4, 5, 6, 7]
+    same = (torch.equal(st_c, st_p)
+            and torch.equal(rec_c[:, rows].nan_to_num(-7.0),
+                            rec_p[:, rows].nan_to_num(-7.0)))
+    bound_ms, bound_by = segment_bound_ms(tcube, scube, state, rec_c, 1, 10)
+    say(f"[s_mode] canonical 256^2 segment: bound {bound_ms:.4f} ms "
+        f"({bound_by}); SM clock, its maximum and power just after the "
+        f"timings: {clocks}; records outside row 3 and end states equal "
+        f"across modes: {same}")
+    for m in modes:
+        med = float(np.median(times[m]))
+        say(f"[s_mode] {m}: ms {['%.4f' % t for t in times[m]]} median "
+            f"{med:.4f}, {bound_ms / med:.4f} of the bound")
+    assert same
+
+
+def phase_sweep():
+    """All 30 maps of the TbSpectra sweep through chip_smoke's phase 10 (one
+    run_sweep, so cube sets are reused as the CLI does; no kernel-vs-plain
+    holds), and the totals."""
+    with tempfile.TemporaryDirectory() as tmp:
+        timings, wall = chip_smoke.phase_sweep(tmp, indices=range(30),
+                                               compare=())
+    total = {k: sum(t[k] for t in timings)
+             for k in ("records", "resample", "trace", "transfer", "finish",
+                       "segments")}
+    say(f"[sweep] 30 maps: wall {wall:.3f} s; resample "
+        f"{total['resample']:.3f} s, trace {total['trace']:.3f} s, transfer "
+        f"{total['transfer']:.3f} s, finish {total['finish']:.3f} s; "
+        f"{total['records']} records, {total['segments']} segments; peak "
+        f"device memory {max(t['peak_bytes'] for t in timings) / 2 ** 30:.3f}"
+        f" GiB")
+
+
+def main(argv=None):
+    phases = sys.argv[1:] if argv is None else argv
+    phases = phases or list(PHASES)
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        print(f"profile_slice: unknown phases {unknown}; choose from "
+              f"{PHASES}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device; nothing run", file=sys.stderr)
         return 1
@@ -344,15 +443,24 @@ def main():
     say(f"nvidia-smi: {smi_line()}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}")
     with torch.inference_mode():
-        libs = build_all(flag_sets())
+        libs = (build_all(flag_sets())
+                if {"cache", "floor"} & set(phases) else {})
         with tempfile.TemporaryDirectory() as tmp:
             model = synthetic_mas_model(Path(tmp) / "corona", timestep=2)
             cfg = RayEmissionConfig(**SLICE)
-            phase_spread(model, cfg)
-            phase_profile(model, cfg)
-            phase_cache(libs, model, cfg)
-        phase_floor({name: libs[name]
-                     for name in ("shipped", "shipped_nofma")})
+            if "spread" in phases:
+                phase_spread(model, cfg)
+            if "profile" in phases:
+                phase_profile(model, cfg)
+            if "cache" in phases:
+                phase_cache(libs, model, cfg)
+            if "s_mode" in phases:
+                phase_s_mode()
+            if "sweep" in phases:
+                phase_sweep()
+        if "floor" in phases:
+            phase_floor({name: libs[name]
+                         for name in ("shipped", "shipped_nofma")})
     say(f"nvidia-smi: {smi_line()}")
     return 0
 

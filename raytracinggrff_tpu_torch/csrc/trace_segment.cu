@@ -8,8 +8,11 @@
 //     omega^2 = omega_pe^2 + |k|^2,
 // with cross-section tracking (two rays launched eps = pr*|dr| off the
 // pre-step position along e1, e2 advance one step; cumS *= |(d1 x d2).t| /
-// eps^2), and writes rps records [x, y, z, cumS, ne, te, b, cos_theta].
-// The arithmetic follows the JAX XLA tracer in its serial order
+// eps^2), and writes rps records [x, y, z, S, ne, te, b, cos_theta]. S is
+// cumS, or with p.per_step the ratio of the record's last step (the JAX
+// tracer's s_mode='per_step', raytracinggrff_tpu/tracer.py:235-266); the
+// state carries cumS in both modes, so a continued segment does not depend
+// on the mode. The arithmetic follows the JAX XLA tracer in its serial order
 // (raytracinggrff_tpu/tracer.py:93-170), not the TPU kernel's pipelined
 // perturbed pair, and its per-evaluation validity: an evaluation outside
 // the cube zeroes dr and leaves dk NaN, which freezes the ray for good.
@@ -60,7 +63,7 @@ struct TraceParams {  // mirrored by ops/trace_segment.py::_TraceParams
   float x0, y0, z0, inv_dx, inv_dy, inv_dz;
   float fill_ne, fill_te, fill_b;
   int nx, ny, nz, n_rays, n_first, stride, rps, crosssections,
-      sample_channels, wide_index;
+      sample_channels, wide_index, per_step;
 };
 
 namespace {
@@ -329,7 +332,7 @@ __device__ __forceinline__ float finite_or(float v, float fill) {
 template <int NG, typename Idx>
 __device__ __forceinline__ void record(const float4* __restrict__ scube,
                                        const TraceParams& p, V3 r, V3 k,
-                                       float cum, float* __restrict__ out,
+                                       float s, float* __restrict__ out,
                                        int64_t n) {
   Cell<Idx> c;
   const bool in = locate(p, r, c);
@@ -347,14 +350,15 @@ __device__ __forceinline__ void record(const float4* __restrict__ scube,
   out[0 * n] = r.x;
   out[1 * n] = r.y;
   out[2 * n] = r.z;
-  out[3 * n] = cum;
+  out[3 * n] = s;
   out[4 * n] = finite_or(s0.x, p.fill_ne);
   out[5 * n] = finite_or(s0.y, p.fill_te);
   out[6 * n] = finite_or(s0.z, p.fill_b);
   out[7 * n] = cos_t;
 }
 
-template <bool CS, int NG, typename Idx>
+// CS: cross-sections on; PS: records hold the per-step S (only with CS).
+template <bool CS, bool PS, int NG, typename Idx>
 __global__ void __launch_bounds__(kThreads)
     trace_segment_kernel(const float4* __restrict__ tcube,
                          const float4* __restrict__ scube,
@@ -374,10 +378,13 @@ __global__ void __launch_bounds__(kThreads)
   cache.init();
   for (int b = 0; b < p.rps; ++b) {
     const int steps = b == 0 ? p.n_first : p.stride;
-    float acc = 1.f;  // this block's S product, as in tracer.py::do_steps
+    float acc = 1.f;   // this block's S product, as in tracer.py::do_steps
+    float last = 1.f;  // the ratio of the block's last step
     for (int s = 0; s < steps; ++s) {
       if (CS) {
-        acc *= step_with_crosssection(tcube, p, cache, r, k);
+        const float ratio = step_with_crosssection(tcube, p, cache, r, k);
+        acc *= ratio;
+        if (PS) last = ratio;
       } else {
         V3 rn, kn;
         rk4<kCentral>(tcube, p, cache, r, k, rn, kn);
@@ -386,8 +393,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     if (CS) cum *= acc;
-    record<NG, Idx>(scube, p, r, k, cum, records + int64_t(b) * 8 * n + ray,
-                    n);
+    record<NG, Idx>(scube, p, r, k, PS ? last : cum,
+                    records + int64_t(b) * 8 * n + ray, n);
   }
   state_out[0 * n + ray] = r.x;
   state_out[1 * n + ray] = r.y;
@@ -399,16 +406,16 @@ __global__ void __launch_bounds__(kThreads)
   if (kCounters) cache.flush(counts);
 }
 
-template <bool CS, typename Idx>
+template <bool CS, bool PS, typename Idx>
 void launch(const float4* t, const float4* s, const float* in, float* out,
             float* rec, const TraceParams& p, unsigned long long* counts,
             cudaStream_t stream) {
   const dim3 grid((p.n_rays + kThreads - 1) / kThreads);
   if (p.sample_channels == 8)
-    trace_segment_kernel<CS, 2, Idx>
+    trace_segment_kernel<CS, PS, 2, Idx>
         <<<grid, kThreads, 0, stream>>>(t, s, in, out, rec, p, counts);
   else
-    trace_segment_kernel<CS, 1, Idx>
+    trace_segment_kernel<CS, PS, 1, Idx>
         <<<grid, kThreads, 0, stream>>>(t, s, in, out, rec, p, counts);
 }
 
@@ -416,10 +423,12 @@ template <typename Idx>
 void launch_cs(const float4* t, const float4* s, const float* in, float* out,
                float* rec, const TraceParams& p, unsigned long long* counts,
                cudaStream_t stream) {
-  if (p.crosssections)
-    launch<true, Idx>(t, s, in, out, rec, p, counts, stream);
+  if (p.crosssections && p.per_step)
+    launch<true, true, Idx>(t, s, in, out, rec, p, counts, stream);
+  else if (p.crosssections)
+    launch<true, false, Idx>(t, s, in, out, rec, p, counts, stream);
   else
-    launch<false, Idx>(t, s, in, out, rec, p, counts, stream);
+    launch<false, false, Idx>(t, s, in, out, rec, p, counts, stream);
 }
 
 }  // namespace
@@ -428,8 +437,9 @@ void launch_cs(const float4* t, const float4* s, const float* in, float* out,
 // Cubes: (nx, ny, nz, 4) trace and (nx, ny, nz, sample_channels) sample,
 // float32, contiguous. state_in/out: (7, n_rays); records: (rps, 8, n_rays).
 // p.wide_index selects 64-bit cube offsets, which a sample cube of 2^31
-// float4 or more needs. counts: rgrff_cache_counters() zeroed uint64, or
-// null when that is 0.
+// float4 or more needs. p.per_step (with p.crosssections) writes each
+// record's last step ratio into row 3 instead of cumS. counts:
+// rgrff_cache_counters() zeroed uint64, or null when that is 0.
 extern "C" int rgrff_trace_segment(const void* tcube, const void* scube,
                                    const void* state_in, void* state_out,
                                    void* records, TraceParams p,

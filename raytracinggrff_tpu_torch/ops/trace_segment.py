@@ -5,9 +5,12 @@ The kernel replaces the Pallas TPU kernel
 raytracinggrff_tpu/ops/pallas_trace.py::_make_kernel (launched by
 run_trace_segment, pallas_call at ops/pallas_trace.py:654). A segment
 advances every ray `n_first + (rps-1)*stride` RK4 steps with cross-section
-tracking and writes `rps` records of 8 rows [x, y, z, cumS, ne, te, b,
+tracking and writes `rps` records of 8 rows [x, y, z, S, ne, te, b,
 cos_theta] per ray, in the serial order of the JAX XLA tracer
-(tracer.py:93-170, cumulative S).
+(tracer.py:93-287). Row 3 holds the running product of the step ratios
+(s_mode='cumulative') or the ratio of the record's last step
+(s_mode='per_step', tracer.py:235-266); the state carries the running
+product in both modes.
 
 Inputs are channels-last float32 cubes: the trace cube (nx, ny, nz, 4) holds
 [omega_pe, d/dx, d/dy, d/dz] and the sample cube (nx, ny, nz, 4 or 8) holds
@@ -37,7 +40,7 @@ import torch
 
 from ..constants import C_R, FILL_B, FILL_NE, FILL_TE
 from ..grids import UniformGrid
-from ..tracer import advance_blocks, cos_theta_signed
+from ..tracer import advance_blocks, check_s_mode, cos_theta_signed
 from .trilinear import trilinear_packed
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -65,7 +68,7 @@ class _TraceParams(ctypes.Structure):
         "inv_dx", "inv_dy", "inv_dz", "fill_ne", "fill_te", "fill_b")] + [
         (name, ctypes.c_int) for name in (
             "nx", "ny", "nz", "n_rays", "n_first", "stride", "rps",
-            "crosssections", "sample_channels", "wide_index")]
+            "crosssections", "sample_channels", "wide_index", "per_step")]
 
 
 def _nvcc():
@@ -167,14 +170,17 @@ def _check(tcube, scube, state, grid, n_first, stride, rps):
 
 
 def trace_segment(tcube, scube, state, grid: UniformGrid, dt, n_first,
-                  stride, rps, perturb_ratio=2.0, crosssections=True):
+                  stride, rps, perturb_ratio=2.0, crosssections=True,
+                  s_mode="cumulative"):
     """Advance every ray of `state` one segment; returns (state_out,
     records) with records (rps, 8, n_rays). CPU tensors run
     trace_segment_plain; CUDA tensors launch the kernel."""
     _check(tcube, scube, state, grid, n_first, stride, rps)
+    check_s_mode(s_mode)
     if state.device.type == "cpu":
         return trace_segment_plain(tcube, scube, state, grid, dt, n_first,
-                                   stride, rps, perturb_ratio, crosssections)
+                                   stride, rps, perturb_ratio, crosssections,
+                                   s_mode)
     if state.device.type != "cuda":
         raise ValueError(f"no trace-segment kernel for {state.device}")
     n_rays = state.shape[1]
@@ -191,7 +197,8 @@ def trace_segment(tcube, scube, state, grid: UniformGrid, dt, n_first,
         float(np.float32(perturb_ratio)), *map(float, g),
         FILL_NE, FILL_TE, FILL_B, grid.nx, grid.ny, grid.nz, n_rays,
         n_first, stride, rps, int(bool(crosssections)), channels,
-        int(needs_wide_index(grid.nx * grid.ny * grid.nz, channels)))
+        int(needs_wide_index(grid.nx * grid.ny * grid.nz, channels)),
+        int(s_mode == "per_step"))
     n_counts = lib.rgrff_cache_counters()
     counts = (torch.zeros(n_counts, dtype=torch.int64, device=state.device)
               if n_counts else None)
@@ -219,9 +226,12 @@ trace_segment.cache_counts = None
 
 
 def trace_segment_plain(tcube, scube, state, grid: UniformGrid, dt, n_first,
-                        stride, rps, perturb_ratio=2.0, crosssections=True):
+                        stride, rps, perturb_ratio=2.0, crosssections=True,
+                        s_mode="cumulative"):
     """The kernel's computation in plain torch (tracer.py building blocks
     and trilinear_packed), on any device; same signature and outputs."""
+    check_s_mode(s_mode)
+    per_step = s_mode == "per_step"
     table = tcube.reshape(-1, 4)
     stable = scube.reshape(-1, scube.shape[3])
     fills = torch.tensor([FILL_NE, FILL_TE, FILL_B]
@@ -229,7 +239,7 @@ def trace_segment_plain(tcube, scube, state, grid: UniformGrid, dt, n_first,
                          dtype=torch.float32, device=state.device)
     r, k, cum_s = state[0:3], state[3:6], state[6]
     recs = []
-    for r, k, cum_s in advance_blocks(
+    for r, k, cum_s, last in advance_blocks(
             table, grid, r, k, cum_s, np.float32(dt), n_first, stride, rps,
             crosssections, np.float32(perturb_ratio)):
         v, _ = trilinear_packed(stable, grid, r[0], r[1], r[2])
@@ -238,7 +248,8 @@ def trace_segment_plain(tcube, scube, state, grid: UniformGrid, dt, n_first,
             cos_t = cos_theta_signed(k.T, v[:, 3:6])
         else:
             cos_t = torch.zeros_like(cum_s)
-        recs.append(torch.stack([r[0], r[1], r[2], cum_s, v[:, 0], v[:, 1],
+        s = last if per_step and crosssections else cum_s
+        recs.append(torch.stack([r[0], r[1], r[2], s, v[:, 0], v[:, 1],
                                  v[:, 2], cos_t]))
     state_out = torch.cat([r, k, cum_s[None]])
     return state_out, torch.stack(recs)

@@ -12,7 +12,7 @@
 
 They keep the result keys and the .npz outputs of the JAX package and run
 on `device` ("cuda" by default); a CPU run names device="cpu". Not ported
-yet: meshes and s_mode='per_step'.
+yet: meshes.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from .grff.transfer import (get_mw_slice, log_spaced_freqs,
                             transfer_carry_init)
 from .mas.model import MASModel, resample_var_to_cube
 from .sampler import LosSamples, record_step, valid_and_ds
+from .tracer import check_s_mode
 from .tracer_segments import iter_trace_segments
 from .utils.plotting import inspection_pixel_index
 
@@ -162,7 +163,7 @@ class RayEmissionConfig:
     theta_deg: float = 90.0        # Parms[4]
     theta_mode: str = "fixed"      # 'fixed' | 'los' (per-voxel theta(B, k))
     gaunt: str = "dulk"            # 'dulk' (reference parity) | 'exact'
-    s_mode: str = "cumulative"     # GPU-reference S semantics
+    s_mode: str = "cumulative"     # GPU-reference S; 'per_step': CPU's
     seg_records: int = 64          # records per trace segment
 
 
@@ -246,9 +247,7 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
     cfg = config or RayEmissionConfig()
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    if cfg.s_mode != "cumulative":
-        raise NotImplementedError(
-            "s_mode='per_step' is not ported yet; use s_mode='cumulative'")
+    check_s_mode(cfg.s_mode)
     if cfg.theta_mode not in ("fixed", "los"):
         raise ValueError(f"theta_mode must be 'fixed' or 'los', "
                          f"got {cfg.theta_mode!r}")
@@ -382,7 +381,7 @@ def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
         cfg.freq_hz, start, kdir, cfg.dt, cfg.n_steps, cfg.record_stride,
         trace_crosssections=True, perturb_ratio=cfg.perturb_ratio,
         seg_records=cfg.seg_records,
-        bvec=cubes.get("bvec") if theta_los else None)
+        bvec=cubes.get("bvec") if theta_los else None, s_mode=cfg.s_mode)
     while True:
         t0 = clock.mark()
         recs = next(segments, None)

@@ -11,7 +11,9 @@ the ray (build_rays.py:169-175).
 Cross-sections (build_rays.py:186-244): per step, two rays perturbed
 transversely by eps = perturb_ratio*|dr| advance one step from the central
 ray's previous state; S = |cross(d1, d2) . t_hat| / eps^2. Records carry the
-cumulative product of S (the GPU reference, gpu_raytrace.py:398-408).
+cumulative product of S (s_mode='cumulative', the GPU reference,
+gpu_raytrace.py:398-408) or the ratio of the record's last step
+(s_mode='per_step', the CPU reference, build_rays.py:241-244).
 
 These functions are the building blocks of the trace-segment kernel's plain
 version (ops/trace_segment.py); `trace_rays` is the twin of the JAX
@@ -32,7 +34,7 @@ from .ops.trilinear import pack_fields, trilinear_packed
 
 class TraceResult(NamedTuple):
     r_record: torch.Tensor       # (n_records, n_rays, 3) recorded positions
-    s_record: torch.Tensor       # (n_records, n_rays) cumulative S
+    s_record: torch.Tensor       # (n_records, n_rays) S of the s_mode
     final_state: torch.Tensor    # (n_rays, 6) final [r, k]
     k_record: torch.Tensor | None = None  # (n_records, n_rays, 3)
 
@@ -150,26 +152,37 @@ def init_k_vectors(table, grid: UniformGrid, freq_hz, start, kdir):
     return kdir * kc0[:, None]
 
 
+S_MODES = ("cumulative", "per_step")
+
+
+def check_s_mode(s_mode):
+    if s_mode not in S_MODES:
+        raise ValueError(f"unknown s_mode {s_mode!r}; expected one of "
+                         f"{S_MODES}")
+
+
 def advance_blocks(table, grid, r, k, cum_s, dt, n_first, stride, n_blocks,
                    trace_crosssections=True, perturb_ratio=2.0
                    ) -> Iterator[tuple]:
-    """Advance (r, k, cum_s) block by block and yield the state at each
-    record: the first record after `n_first` steps, then one every
+    """Advance (r, k, cum_s) block by block and yield (r, k, cum_s, last)
+    at each record: the first record after `n_first` steps, then one every
     `stride` steps (build_rays.py:204,241). Each block's S product starts
     at 1 and multiplies into cum_s at the record, the order of the JAX
-    tracer. dt and perturb_ratio are float32 numbers."""
+    tracer; `last` is the ratio of the block's last step (1 without
+    cross-sections). dt and perturb_ratio are float32 numbers."""
     for b in range(n_blocks):
         acc = torch.ones_like(cum_s)
+        last = acc
         for _ in range(n_first if b == 0 else stride):
             if trace_crosssections:
-                r, k, s = _step_with_crosssection(table, grid, r, k, dt,
-                                                  perturb_ratio)
-                acc = acc * s
+                r, k, last = _step_with_crosssection(table, grid, r, k, dt,
+                                                     perturb_ratio)
+                acc = acc * last
             else:
                 r, k = _rk4_step(table, grid, r, k, dt)
         if trace_crosssections:
             cum_s = cum_s * acc
-        yield r, k, cum_s
+        yield r, k, cum_s, last
 
 
 def trace_rays(table, grid: UniformGrid, freq_hz, start, kdir, dt: float,
@@ -183,13 +196,12 @@ def trace_rays(table, grid: UniformGrid, freq_hz, start, kdir, dt: float,
     (n_rays, 3) tensors. `first_block`/`k_init` continue a trace: the first
     record comes after `first_block` steps, and `k_init` (n_rays, 3)
     replaces the kc0 initialisation. Callers with first_block != 1 pass
-    n_steps = first_block + (n_records-1)*record_stride.
+    n_steps = first_block + (n_records-1)*record_stride. s_mode picks
+    what the S records hold: the running product ('cumulative') or the
+    ratio of each record's last step ('per_step').
     """
-    if s_mode == "per_step":
-        raise NotImplementedError(
-            "s_mode='per_step' is not ported yet; use s_mode='cumulative'")
-    if s_mode != "cumulative":
-        raise ValueError(f"unknown s_mode {s_mode!r}")
+    check_s_mode(s_mode)
+    per_step = s_mode == "per_step"
     n_records = -(-n_steps // record_stride)
     start = torch.as_tensor(start, dtype=torch.float32)
     kdir = torch.as_tensor(kdir, dtype=torch.float32, device=start.device)
@@ -202,12 +214,12 @@ def trace_rays(table, grid: UniformGrid, freq_hz, start, kdir, dt: float,
     ones = torch.ones(r.shape[1], dtype=torch.float32, device=r.device)
 
     rs, ss, ks = [], [], []
-    for r, k, cum_s in advance_blocks(
+    for r, k, cum_s, last in advance_blocks(
             table, grid, r, k, ones, np.float32(dt), first_block,
             record_stride, n_records, trace_crosssections,
             np.float32(perturb_ratio)):
         rs.append(r.T)
-        ss.append(cum_s)
+        ss.append(last if per_step else cum_s)
         ks.append(k.T)
     s_record = torch.stack(ss)
     if not trace_crosssections:

@@ -2,9 +2,9 @@
 package's tracer_pallas.py.
 
 `iter_trace_segments` prepares the kernel inputs once (channels-last trace
-and sample cubes, initial wave vectors) and then launches
+and sample cubes, initial wave vectors) and then `run_segments` launches
 ops/trace_segment.trace_segment once per segment, yielding (rps, 8, n_rays)
-record blocks with rows [x, y, z, cumS, ne, te, b, cos_theta] in the
+record blocks with rows [x, y, z, S, ne, te, b, cos_theta] in the
 original ray order. Segments only bound the record memory: the ray state
 stays on the device between them, and step counts are runtime arguments, so
 the last segment runs exactly the steps its records need.
@@ -28,7 +28,7 @@ from .tracer import gradient_cubes, init_k_vectors
 
 class SegmentTraceResult(NamedTuple):
     r_record: np.ndarray   # (n_records, n_rays, 3)
-    s_record: np.ndarray   # (n_records, n_rays) cumulative S
+    s_record: np.ndarray   # (n_records, n_rays) S of the s_mode
     ne: np.ndarray         # (n_records, n_rays)
     te: np.ndarray
     b: np.ndarray
@@ -68,42 +68,63 @@ def segment_plan(n_steps, record_stride, seg_records):
     return plan, n_records
 
 
-def iter_trace_segments(omega_pe_cube, ne_cube, te_cube, b_cube,
-                        grid: UniformGrid, freq_hz, start, kdir, dt, n_steps,
-                        record_stride=10, trace_crosssections=True,
-                        perturb_ratio=2.0, seg_records=64, bvec=None):
-    """Yield (rps, 8, n_rays) record blocks, one per segment, on the
-    device of `omega_pe_cube`. start, kdir: (n_rays, 3) arrays or
-    tensors. `bvec` (image-frame Cartesian B cubes) makes row 7 the signed
-    cos(theta) between B and the wave vector; otherwise it is 0."""
-    device = omega_pe_cube.device
-    tcube, scube = prepare_trace_inputs(omega_pe_cube, ne_cube, te_cube,
-                                        b_cube, grid, bvec)
+def initial_state(tcube, grid: UniformGrid, freq_hz, start, kdir):
+    """The kernel's (7, n_rays) start state [x, y, z, kx, ky, kz, S = 1]
+    on the device of `tcube`, with the wave vectors of init_k_vectors.
+    start, kdir: (n_rays, 3) arrays or tensors."""
+    device = tcube.device
     start = torch.as_tensor(start, dtype=torch.float32, device=device)
     kdir = torch.as_tensor(kdir, dtype=torch.float32, device=device)
     k0 = init_k_vectors(tcube.reshape(-1, 4), grid, freq_hz, start, kdir)
     ones = torch.ones((1, start.shape[0]), dtype=torch.float32,
                       device=device)
-    state = torch.cat([start.T, k0.T, ones]).contiguous()
+    return torch.cat([start.T, k0.T, ones]).contiguous()
+
+
+def run_segments(tcube, scube, state, grid: UniformGrid, dt, n_steps,
+                 record_stride=10, trace_crosssections=True,
+                 perturb_ratio=2.0, seg_records=64, s_mode="cumulative"):
+    """Launch trace_segment once per segment of segment_plan on prepared
+    kernel inputs (prepare_trace_inputs, initial_state) and yield each
+    segment's (rps, 8, n_rays) record block."""
     plan, _ = segment_plan(n_steps, record_stride, seg_records)
     for n_first, rps in plan:
         state, records = trace_segment(
             tcube, scube, state, grid, dt, n_first, record_stride, rps,
-            perturb_ratio, trace_crosssections)
+            perturb_ratio, trace_crosssections, s_mode)
         yield records
+
+
+def iter_trace_segments(omega_pe_cube, ne_cube, te_cube, b_cube,
+                        grid: UniformGrid, freq_hz, start, kdir, dt, n_steps,
+                        record_stride=10, trace_crosssections=True,
+                        perturb_ratio=2.0, seg_records=64, bvec=None,
+                        s_mode="cumulative"):
+    """Yield (rps, 8, n_rays) record blocks, one per segment, on the
+    device of `omega_pe_cube`. start, kdir: (n_rays, 3) arrays or
+    tensors. `bvec` (image-frame Cartesian B cubes) makes row 7 the signed
+    cos(theta) between B and the wave vector; otherwise it is 0. Row 3
+    holds cumulative S, or with s_mode='per_step' the ratio of each
+    record's last step."""
+    tcube, scube = prepare_trace_inputs(omega_pe_cube, ne_cube, te_cube,
+                                        b_cube, grid, bvec)
+    state = initial_state(tcube, grid, freq_hz, start, kdir)
+    yield from run_segments(tcube, scube, state, grid, dt, n_steps,
+                            record_stride, trace_crosssections,
+                            perturb_ratio, seg_records, s_mode)
 
 
 def trace_rays_segments(omega_pe_cube, ne_cube, te_cube, b_cube,
                         grid: UniformGrid, freq_hz, start, kdir, dt, n_steps,
                         record_stride=10, trace_crosssections=True,
-                        perturb_ratio=2.0, seg_records=64, bvec=None
-                        ) -> SegmentTraceResult:
+                        perturb_ratio=2.0, seg_records=64, bvec=None,
+                        s_mode="cumulative") -> SegmentTraceResult:
     """Collect every segment's records on the host (the counterpart of
     trace_rays_pallas, for tests and small traces)."""
     blocks = [r.cpu() for r in iter_trace_segments(
         omega_pe_cube, ne_cube, te_cube, b_cube, grid, freq_hz, start, kdir,
         dt, n_steps, record_stride, trace_crosssections, perturb_ratio,
-        seg_records, bvec)]
+        seg_records, bvec, s_mode)]
     rec = torch.cat(blocks).numpy().transpose(0, 2, 1)   # (n_rec, n_rays, 8)
     return SegmentTraceResult(
         r_record=rec[:, :, 0:3], s_record=rec[:, :, 3], ne=rec[:, :, 4],

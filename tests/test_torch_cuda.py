@@ -96,19 +96,31 @@ def _assert_records_match(rec_k, rec_p, exact):
                                    rtol=rtol, equal_nan=True)
 
 
+@pytest.mark.parametrize("s_mode", ["cumulative", "per_step"])
 @pytest.mark.parametrize("bvec", [False, True])
 @pytest.mark.parametrize("crosssections", [True, False])
-def test_kernel_matches_plain(cuda, exact, bvec, crosssections):
+def test_kernel_matches_plain(cuda, exact, bvec, crosssections, s_mode):
+    """Every record row against the plain version (rows 0-6 bit for bit in
+    the exact build, per-step S included); the state carries cumulative S
+    in both modes."""
     tcube, scube, state, grid = _inputs(cuda, bvec)
     args = (tcube, scube, state, grid, 5e-3, 1, 10, 8, 2.0, crosssections)
     launches = trace_segment.launches
-    st_k, rec_k = trace_segment(*args)
-    st_p, rec_p = trace_segment_plain(*args)
+    st_k, rec_k = trace_segment(*args, s_mode=s_mode)
+    st_p, rec_p = trace_segment_plain(*args, s_mode=s_mode)
     torch.cuda.synchronize()
     assert trace_segment.launches == launches + 1
     _assert_records_match(rec_k, rec_p, exact)
     torch.testing.assert_close(st_k[:3], st_p[:3], atol=2e-4, rtol=2e-4)
     assert torch.all(rec_k[:, 3, :4] == (0.0 if crosssections else 1.0))
+    if exact:
+        torch.testing.assert_close(st_k[6], st_p[6], atol=0, rtol=0,
+                                   equal_nan=True)
+    if crosssections and s_mode == "per_step":
+        st_c, rec_c = trace_segment(*args)
+        torch.testing.assert_close(st_k, st_c, atol=0, rtol=0,
+                                   equal_nan=True)
+        assert not torch.equal(rec_k[1:, 3, 4:], rec_c[1:, 3, 4:])
 
 
 def _cache_scene(device, scene, bvec, n_rays=1000):
@@ -171,12 +183,17 @@ def test_wide_index_matches_narrow(cuda, monkeypatch):
     torch.testing.assert_close(wide, narrow, atol=0, rtol=0, equal_nan=True)
 
 
-def test_kernel_continues_across_segments(cuda):
-    """Two segments equal one segment with the same records."""
+@pytest.mark.parametrize("s_mode", ["cumulative", "per_step"])
+def test_kernel_continues_across_segments(cuda, s_mode):
+    """Two segments equal one segment with the same records; with per-step
+    S the continued segment's first record is the last of its `stride`
+    steps."""
     tcube, scube, state, grid = _inputs(cuda, True)
-    _, whole = trace_segment(tcube, scube, state, grid, 5e-3, 1, 10, 6)
-    mid, first = trace_segment(tcube, scube, state, grid, 5e-3, 1, 10, 2)
-    _, rest = trace_segment(tcube, scube, mid, grid, 5e-3, 10, 10, 4)
+    kw = dict(s_mode=s_mode)
+    _, whole = trace_segment(tcube, scube, state, grid, 5e-3, 1, 10, 6, **kw)
+    mid, first = trace_segment(tcube, scube, state, grid, 5e-3, 1, 10, 2,
+                               **kw)
+    _, rest = trace_segment(tcube, scube, mid, grid, 5e-3, 10, 10, 4, **kw)
     torch.testing.assert_close(torch.cat([first, rest]), whole, rtol=0,
                                atol=0, equal_nan=True)
 

@@ -1,29 +1,25 @@
 """The port's GET_MW surface (get_mw, get_mw_slice, the DEM mode) against
 the JAX package and the native C++ library of native/grff_transfer.cpp,
 on the cases of tests/test_native_grff.py and at its tolerances. The
-native library is compiled into a temporary directory for this module."""
+port's grff/native.py compiles the native library into a temporary
+directory for this module."""
 
-import ctypes
 import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
-from numpy.ctypeslib import ndpointer
 
 from raytracinggrff_tpu.constants import (AU_CM, C_CGS, FB_COEF, FPE_COEF,
                                           KB_CGS, SFU2CGS)
 from raytracinggrff_tpu.grff import transfer as jtr
 from raytracinggrff_tpu.grff.physics import (KAPPA_FF_COEF, coulomb_log,
                                              refractive_index_sq)
+from raytracinggrff_tpu_torch.grff import native as pnative
 from raytracinggrff_tpu_torch.grff import transfer as ptr
 
 torch.set_num_threads(1)
 AREA = (0.045 * 6.957e10) ** 2
-NATIVE_SRC = Path(__file__).resolve().parents[1] / "native" / \
-    "grff_transfer.cpp"
 
 
 def port_get_mw(*args, **kw):
@@ -32,29 +28,17 @@ def port_get_mw(*args, **kw):
 
 @pytest.fixture(scope="module")
 def native_get_mw(tmp_path_factory):
-    """get_mw through the native library's PyGET_MW ABI, with the guards
-    of raytracinggrff_tpu.grff.native.get_mw_native."""
+    """get_mw through the native library's PyGET_MW ABI: the port's
+    grff/native.get_mw_native on a library built into a temporary
+    directory."""
     if shutil.which("g++") is None:
         pytest.skip("g++ not available")
-    lib_path = tmp_path_factory.mktemp("native") / "GRFF_DEM_Transfer.so"
-    subprocess.run(["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-o",
-                    str(lib_path), str(NATIVE_SRC)], check=True)
-    fn = ctypes.CDLL(str(lib_path)).PyGET_MW
-    intp = ndpointer(dtype=ctypes.c_int32, flags="F")
-    dblp = ndpointer(dtype=ctypes.c_double, flags="F")
-    fn.argtypes = [intp, dblp, dblp, dblp, dblp, dblp, dblp]
-    fn.restype = ctypes.c_int
+    fn = pnative.init_get_mw(pnative.build_native_lib(
+        tmp_path_factory.mktemp("native")))
 
     def call(lparms, rparms, parms, t=None, dem=None):
-        def farr(x, dtype=np.float64):
-            return np.asfortranarray(np.atleast_1d(
-                np.asarray(0.0 if x is None else x, dtype)))
-        lparms = farr(lparms, np.int32)
-        rl = np.zeros((7, int(lparms[1])), order="F")
-        res = fn(lparms, farr(rparms), np.asfortranarray(parms, np.float64),
-                 farr(t), farr(dem), farr(None), rl)
-        assert res == 0, res
-        return rl
+        return pnative.get_mw_native(lparms, rparms, parms, t=t, dem=dem,
+                                     fn=fn)
     return call
 
 

@@ -32,6 +32,15 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "raytracinggrff_tpu_torch"
 CARD_SCRIPTS = ("chip_smoke.py", "profile_slice.py")
+# the port's CLIs beside the JAX package's 13 (pyproject.toml), and those
+# of them that run on a torch device
+ALL_CLIS = ("ray_tracing_emission", "resample_los", "synthetic_ff",
+            "tb_spectra", "compare_los_raytracing", "compare_s_input",
+            "bench", "demo_rays", "plot_model_slices", "compare_tb_spectra",
+            "compare_obs", "obs_spectrum", "sdo_context")
+DEVICE_CLIS = ("ray_tracing_emission", "resample_los", "synthetic_ff",
+               "compare_los_raytracing", "tb_spectra", "compare_s_input",
+               "bench", "demo_rays", "plot_model_slices")
 JAX_IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax\b|raytracinggrff_tpu\b(?!_torch))",
     re.MULTILINE)
@@ -45,8 +54,9 @@ def test_import_leaves_jax_out():
     assert set(modules) >= {
         "raytracinggrff_tpu_torch." + m for m in (
             "sampler", "utils.nanpatch", "utils.beam", "utils.plotting",
+            "utils.fits", "utils.obs", "utils.profiling", "grff.native",
             "cli.resample_los", "cli.synthetic_ff",
-            "cli.compare_los_raytracing")}
+            "cli.compare_los_raytracing", *(f"cli.{c}" for c in ALL_CLIS))}
     code = ("import sys, importlib\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' "
@@ -59,7 +69,7 @@ def test_import_leaves_jax_out():
 
 def test_sources_never_import_jax_or_the_jax_package():
     files = list(PKG.rglob("*.py"))
-    assert len(files) >= 22
+    assert len(files) >= 36
     for path in files:
         assert not JAX_IMPORT.search(path.read_text()), path
 
@@ -78,15 +88,31 @@ def test_card_script_imports_no_jax_and_needs_cuda(script):
 
 @pytest.mark.parametrize("name", ["run_ray_tracing_emission",
                                   "prepare_cubes", "resample_var_to_cube",
-                                  "resample_mas_los", "synthetic_ff"])
+                                  "resample_mas_los", "synthetic_ff",
+                                  "cli.tb_spectra.run_sweep",
+                                  "cli.plot_model_slices.sample_plane"])
 def test_entry_points_default_to_cuda(name):
-    module = pmodel if name == "resample_var_to_cube" else ppipeline
+    if name.startswith("cli."):
+        mod, name = name.rsplit(".", 1)
+        module = importlib.import_module(f"raytracinggrff_tpu_torch.{mod}")
+    else:
+        module = pmodel if name == "resample_var_to_cube" else ppipeline
     param = inspect.signature(getattr(module, name)).parameters["device"]
     assert param.default == "cuda", name
 
 
-@pytest.mark.parametrize("cli", ["ray_tracing_emission", "resample_los",
-                                 "synthetic_ff", "compare_los_raytracing"])
+def test_every_jax_cli_has_a_port():
+    """Each of the JAX package's console scripts has a module of the same
+    name in the port's cli/."""
+    text = (ROOT / "pyproject.toml").read_text()
+    jax_clis = set(re.findall(r'"raytracinggrff_tpu\.cli\.(\w+):main"',
+                              text))
+    assert jax_clis == set(ALL_CLIS)
+    for cli in ALL_CLIS:
+        assert (PKG / "cli" / f"{cli}.py").exists(), cli
+
+
+@pytest.mark.parametrize("cli", DEVICE_CLIS)
 def test_cli_device_defaults_to_cuda(cli):
     parser = importlib.import_module(
         f"raytracinggrff_tpu_torch.cli.{cli}").build_parser()

@@ -4,6 +4,8 @@ tests/test_streamed_pipeline.py, tests/test_pipeline.py and
 tests/test_theta_los.py: theta_mode='los', gyroresonance, and the plot,
 beam and NaN-patch options."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -133,13 +135,47 @@ def test_model_path_matches_jax_xla(corona, tmp_path):
     assert port["_sampled"] is None
 
 
-@pytest.mark.parametrize("option", [
-    {"mesh": object()}, {"s_mode": "per_step"}])
+@pytest.mark.parametrize("option", [{"mesh": object()}])
 def test_unported_options_raise(corona, option):
     with pytest.raises(NotImplementedError):
         run_ray_tracing_emission(model_path=corona, device="cpu",
                                  verbose=False, n_pix=2, n_steps=10,
                                  grid_n=8, **option)
+
+
+@pytest.mark.parametrize("theta_mode", ["fixed", "los"])
+def test_per_step_map_matches_jax_xla(cubes, theta_mode):
+    """s_mode='per_step' with s_input_on (each record's source area is its
+    last step's S times the pixel area) over three segments, against the
+    JAX XLA pipeline's per-step map, at the bars of the cumulative tests;
+    the map differs from the cumulative one."""
+    from raytracinggrff_tpu.grids import UniformGrid
+    scene = dict(cubes)
+    if theta_mode == "los":
+        scene["bvec"] = _dipole_bvec(UniformGrid.cube(2.5, 40))
+    jcfg = JaxConfig(tracer_backend="xla", n_pix=8, x_fov=1.3,
+                     freq_hz=150e6, grid_n=40, grid_extent=2.5,
+                     z_observer=2.5, dt=1e-2, n_steps=610, nfreq=2,
+                     freq_log_step=0.2, s_input_on=True, s_mode="per_step",
+                     theta_mode=theta_mode, seg_records=25)
+    ref = jax_run(cubes=_jax_cubes(scene), verbose=False, config=jcfg)
+    timings = {}
+    port = run_ray_tracing_emission(cubes=cubes_from_numpy(scene, "cpu"),
+                                    verbose=False, device="cpu",
+                                    config=config_from_jax(jcfg),
+                                    timings=timings)
+    assert timings["segments"] == 3
+    if theta_mode == "los":
+        _assert_los_maps_agree(port, ref)
+    else:
+        _assert_maps_agree(port, ref)
+    cum = run_ray_tracing_emission(
+        cubes=cubes_from_numpy(scene, "cpu"), verbose=False, device="cpu",
+        config=config_from_jax(dataclasses.replace(jcfg,
+                                                   s_mode="cumulative")))
+    lit = port["emission_cube"] > 1e4
+    assert np.mean(np.abs(port["emission_cube"][lit]
+                          / cum["emission_cube"][lit] - 1) > 1e-3) > 0.5
 
 
 def _dipole_bvec(grid, b0=4.0):

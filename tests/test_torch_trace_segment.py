@@ -62,16 +62,19 @@ def _t(*arrays):
 
 
 def _compare(grid, wpe, ne, te, b, start, kdir, dt, n_steps, stride,
-             seg_records=4, bvec=None):
+             seg_records=4, bvec=None, s_mode="cumulative",
+             crosssections=True):
     """Port records vs JAX trace_rays + sample_model_with_rays."""
     res_p = trace_rays_segments(
         *_t(wpe, ne, te, b), _port_grid(grid), FREQ, start, kdir, dt,
-        n_steps, stride, seg_records=seg_records,
-        bvec=None if bvec is None else _t(*bvec))
+        n_steps, stride, trace_crosssections=crosssections,
+        seg_records=seg_records, bvec=None if bvec is None else _t(*bvec),
+        s_mode=s_mode)
     table = jtracer.pack_trace_table(jnp.asarray(wpe), grid)
     res_x = jtracer.trace_rays(table, grid, FREQ, jnp.asarray(start),
                                jnp.asarray(kdir), dt, n_steps, stride,
-                               trace_crosssections=True, record_k=True)
+                               trace_crosssections=crosssections,
+                               s_mode=s_mode, record_k=True)
     np.testing.assert_allclose(res_p.r_record, np.asarray(res_x.r_record),
                                rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(res_p.s_record, np.asarray(res_x.s_record),
@@ -144,14 +147,19 @@ def _b_at_records(bvec, grid, r):
     return jnp.where(jnp.isfinite(v), v, 0.0)
 
 
-def test_segments_equal_one_segment():
-    """seg_records=7 yields exactly the records of a single segment."""
+@pytest.mark.parametrize("s_mode", ["cumulative", "per_step"])
+def test_segments_equal_one_segment(s_mode):
+    """seg_records=7 yields exactly the records of a single segment: a
+    continued segment's first record runs `stride` steps, and its per-step
+    S is the last of those."""
     grid, wpe, ne, te, b, bvec = _scene()
     start, kdir = _bundle(32, seed=5)
     args = (*_t(wpe, ne, te, b), _port_grid(grid), FREQ, start, kdir, 5e-3,
             201, 10)
-    one = trace_rays_segments(*args, seg_records=64, bvec=_t(*bvec))
-    many = trace_rays_segments(*args, seg_records=7, bvec=_t(*bvec))
+    one = trace_rays_segments(*args, seg_records=64, bvec=_t(*bvec),
+                              s_mode=s_mode)
+    many = trace_rays_segments(*args, seg_records=7, bvec=_t(*bvec),
+                               s_mode=s_mode)
     for a, c in zip(one, many):
         np.testing.assert_array_equal(a, c)
 
@@ -190,13 +198,64 @@ def test_trace_rays_twin_matches_jax(crosssections):
                                    atol=rtol)
 
 
-def test_per_step_s_mode_raises():
-    grid, wpe, *_ = _scene(n=9)
-    start, kdir = _bundle(4)
-    table = tracer.pack_trace_table(torch.as_tensor(wpe), _port_grid(grid))
-    with pytest.raises(NotImplementedError, match="per_step"):
-        tracer.trace_rays(table, _port_grid(grid), FREQ, *_t(start, kdir),
-                          5e-3, 10, 10, s_mode="per_step")
+@pytest.mark.parametrize("crosssections", [True, False])
+def test_per_step_records_match_xla(crosssections):
+    """s_mode='per_step' through tracer_segments (three segments, the
+    plain version on the CPU) against the JAX XLA tracer's per-step
+    records, on the refracting bundle with frozen rays, at the tolerances
+    of the cumulative tests; row 3 differs from the cumulative records,
+    and is 1 with cross-sections off as in JAX (tracer.py:283-284)."""
+    grid, wpe, ne, te, b, _ = _scene()
+    start, kdir = _bundle(128, seed=4)
+    start[:3, 0] = 50.0
+    res, res_x, _ = _compare(grid, wpe, ne, te, b, start, kdir, dt=5e-3,
+                             n_steps=71, stride=10, seg_records=3,
+                             s_mode="per_step", crosssections=crosssections)
+    if not crosssections:
+        np.testing.assert_array_equal(res.s_record, 1.0)
+        return
+    cum = trace_rays_segments(*_t(wpe, ne, te, b), _port_grid(grid), FREQ,
+                              start, kdir, 5e-3, 71, 10, seg_records=3)
+    np.testing.assert_array_equal(res.r_record, cum.r_record)
+    live = res.s_record[-1] > 0
+    assert live.sum() > 100
+    assert np.mean(res.s_record[1:, live] != cum.s_record[1:, live]) > 0.9
+    np.testing.assert_array_equal(res.s_record[0], cum.s_record[0])
+
+
+def test_per_step_segment_carries_cumulative_s():
+    """In per-step mode the segment's end state is the cumulative one: r
+    and k match the JAX tracer's final state, and row 6 holds the running
+    product, which equals the cumulative segment's and JAX's last
+    cumulative record; so a continued segment does not depend on the
+    mode."""
+    grid, wpe, ne, te, b, _ = _scene()
+    g = _port_grid(grid)
+    start, kdir = _bundle(64, seed=6)
+    tcube, scube = prepare_trace_inputs(*_t(wpe, ne, te, b), g)
+    k0 = tracer.init_k_vectors(tcube.reshape(-1, 4), g, FREQ,
+                               *_t(start, kdir))
+    state = torch.cat([torch.as_tensor(start).T, k0.T,
+                       torch.ones(1, 64)]).contiguous()
+    args = (tcube, scube, state, g, 5e-3, 1, 10, 5)
+    st_ps, rec_ps = trace_segment(*args, s_mode="per_step")
+    st_cu, rec_cu = trace_segment(*args)
+    torch.testing.assert_close(st_ps, st_cu, rtol=0, atol=0)
+    torch.testing.assert_close(rec_ps[:, [0, 1, 2, 4, 5, 6, 7]],
+                               rec_cu[:, [0, 1, 2, 4, 5, 6, 7]], rtol=0,
+                               atol=0)
+    table = jtracer.pack_trace_table(jnp.asarray(wpe), grid)
+    res_x = jtracer.trace_rays(table, grid, FREQ, jnp.asarray(start),
+                               jnp.asarray(kdir), 5e-3, 41, 10,
+                               trace_crosssections=True)
+    np.testing.assert_allclose(st_ps[:6].T.numpy(),
+                               np.asarray(res_x.final_state), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(st_ps[6].numpy(),
+                               np.asarray(res_x.s_record[-1]), rtol=5e-3,
+                               atol=5e-4)
+    with pytest.raises(ValueError, match="s_mode"):
+        trace_segment(*args, s_mode="instant")
 
 
 def test_wrapper_dispatches_cpu_to_plain_and_checks_inputs():
