@@ -9,8 +9,9 @@ emission map (256^2 rays x 5000 steps x 128^3 cube at 75 MHz, nfreq 3,
 cross-sections and S input on) through run_ray_tracing_emission, and checks
 the map; then drives the straight-LOS chain, the gyroresonance map, the
 low-band LOS vs ray-tracing comparison, per-step cross-sections, three
-maps of the TbSpectra sweep and the other device CLIs at the defaults of
-their CLIs. Phases:
+maps of the TbSpectra sweep, the other device CLIs at the defaults of
+their CLIs, the production map over multi-device meshes and a map against
+the float64 transfer reference. Phases:
   1. versions, card, kernel build
   2. kernel vs plain on a non-reflecting scene, every ray within tolerance
   3. kernel vs plain on the canonical scene's first segment (>= 99% of
@@ -38,6 +39,13 @@ their CLIs. Phases:
      sections off), compare_s_input and plot_model_slices.sample_plane;
      the first segment of bench (>= 99% of rays) and of demo_rays (every
      ray) kernel vs plain
+ 12. the production map over meshes (parallel/): (1, 1) in this process on
+     nccl, (2, 1) and (2, 2) (nfreq 4) as spawned ranks on the one card
+     with gloo, against the one-process map (T_b rtol 1e-6, V/I atol
+     1e-6), each rank's launches = segments; then
+     parallel.dryrun.dryrun_multichip(4) with gloo on the card
+ 13. phase 5's map through the kernel against the float64 reference
+     (grff/reference.py) on the same records: lit on-disk T_b within 1%
 Each path that traces rays runs with the launch count set to 0 just
 before it and checks it against its segment count just after.
 The last lines are one JSON object per kernel, the card's name and power
@@ -372,6 +380,7 @@ def phase_main(out, tmp):
         f"{', '.join('%.4g' % p for p in pct)}")
     assert inside.all(), "on-disk T_b outside 1e4..3e6 K"
     out.update(launches=launches, wall=wall, timings=timings)
+    return res
 
 
 def map_kernel_vs_plain(tag, cubes, bar, device="cuda", **overrides):
@@ -612,6 +621,11 @@ def phase_sweep(tmp, indices=SWEEP_INDICES, compare=SWEEP_INDICES,
             f"{t['segments']}; peak device memory {peak}; on-disk T_b median "
             f"{med:.4g} K, min {vals.min():.4g}, max {vals.max():.4g}, "
             f"{off:.5f} of {vals.size} values outside 1e4..3e6 K")
+        if off:
+            flat = np.flatnonzero((disk_mask(n_pix, t["x_fov"])
+                                   & ((tb <= 1e4) | (tb >= 3e6))).ravel())
+            say(f"[10] index {i}: flat pixel indices (i * {n_pix} + j) of "
+                f"the on-disk values outside 1e4..3e6 K: {flat.tolist()}")
         assert 1e4 < med < 3e6, med
         t.update(index=i, median=med, off_range=off)
     for i, first in zip(indices, firsts):
@@ -710,6 +724,153 @@ def phase_cli(tmp, device="cuda"):
         f"{plane['b'].min():.4g}..{plane['b'].max():.4g} G")
 
 
+# phase 12's bar on a mesh map against the one-process map: every ray
+# runs the same per-thread arithmetic in whatever shard it is
+MESH_TB_RTOL, MESH_VI_ATOL = 1e-6, 1e-6
+
+
+def hold_mesh_map(tag, ranks, one, n_seg):
+    """Every rank's map against the one-process map `one` under the mesh
+    bar, each rank's launches = segments; prints each rank's stages."""
+    d_tb = d_vi = 0.0
+    for r in sorted(ranks, key=lambda r: r["rank"]):
+        t = r["timings"]
+        say(f"[12] {tag} rank {r['rank']} {r['coords']}: wall "
+            f"{r['wall']:.3f} s; resample {t['resample']:.4f} s, trace "
+            f"{t['trace']:.4f} s, transfer {t['transfer']:.4f} s, gather "
+            f"{t['gather']:.4f} s, finish {t['finish']:.4f} s; kernel "
+            f"launches {r['launches']} = segments {n_seg}")
+        assert r["launches"] == n_seg == t["segments"], r["launches"]
+        tb, vi = r["emission_cube"], r["emission_polVI_cube"]
+        ref_tb, ref_vi = one["emission_cube"], one["emission_polVI_cube"]
+        assert tb.shape == ref_tb.shape and np.all(np.isfinite(tb))
+        d_tb = max(d_tb, float(np.max(np.abs(tb - ref_tb)
+                                      / np.maximum(np.abs(ref_tb), 1e-30))))
+        d_vi = max(d_vi, float(np.max(np.abs(vi - ref_vi))))
+    t = ranks[0]["timings"]
+    say(f"[12] {tag}: straggler factor {t['straggler_factor']} (live steps "
+        f"per ray shard {t['shard_live_steps']}); vs one process max rel "
+        f"|dT_b| {d_tb:.3g}, max |dV/I| {d_vi:.3g}")
+    assert d_tb <= MESH_TB_RTOL and d_vi <= MESH_VI_ATOL, (d_tb, d_vi)
+    return {"straggler": t["straggler_factor"], "max_rel_tb": d_tb,
+            "max_vi": d_vi, "ranks": ranks}
+
+
+def phase_mesh(tmp, one, device="cuda", backend="gloo",
+               shapes=((2, 1), (2, 2)), **overrides):
+    """The production map (SLICE with `overrides`) over meshes, against
+    phase 4's map `one`: (1, 1) in this process, then each of `shapes` as
+    spawned ranks on `device` ("cuda" deals them over the cards) with
+    `backend` (None: nccl on CUDA), with nfreq 4 where the frequency axis
+    is sharded; then dryrun_multichip over the most ranks. The card
+    machine has one H100, and NCCL refuses two ranks on one device, so
+    here the ranks share cuda:0 over gloo."""
+    import dataclasses
+    import torch.distributed as dist
+    from raytracinggrff_tpu_torch.mas.model import synthetic_mas_model
+    from raytracinggrff_tpu_torch.parallel import dryrun, launch, mesh
+    from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
+                                                   run_ray_tracing_emission)
+    model = synthetic_mas_model(Path(tmp) / "corona_mesh", timestep=2)
+    cfg = RayEmissionConfig(**dict(SLICE, **overrides))
+    n_seg = n_segments(cfg)
+    first = launch.rank_devices(device, 1)[0]
+    group_backend = mesh.default_backend(first)
+    launch.init_group(Path(tmp) / "store", 0, 1, group_backend)
+    try:
+        r = dryrun.map_rank([first], (1, 1), cfg, model_path=model)
+    finally:
+        dist.destroy_process_group()
+    out = {(1, 1): hold_mesh_map(f"(1, 1) {group_backend}, in process", [r],
+                                 one, n_seg)}
+    cfg4 = dataclasses.replace(cfg, nfreq=4)
+    one4 = None
+    for shape in shapes:
+        c, ref = cfg, one
+        if shape[1] > 1:
+            if one4 is None:
+                one4 = run_ray_tracing_emission(model_path=model,
+                                                config=cfg4, verbose=False,
+                                                device=first)
+            c, ref = cfg4, one4
+        t0 = time.perf_counter()
+        ranks = launch.spawn(dryrun.map_rank, shape[0] * shape[1], device,
+                             backend, args=(shape, c, None, model))
+        say(f"[12] {shape}: spawn to results {time.perf_counter() - t0:.3f}"
+            f" s")
+        out[shape] = hold_mesh_map(
+            f"{shape} {backend or 'nccl'}, spawned, nfreq {c.nfreq}", ranks,
+            ref, n_seg)
+    n = max(a * b for a, b in shapes)
+    t0 = time.perf_counter()
+    summary = dryrun.dryrun_multichip(n, device=device, backend=backend)
+    for r in summary["ranks"]:
+        assert r["launches"] == r["timings"]["segments"], r["launches"]
+    say(f"[12] dryrun_multichip({n}): {time.perf_counter() - t0:.3f} s; "
+        f"kernel launches per rank {[r['launches'] for r in summary['ranks']]}"
+        f" = segments; "
+        f"map max |dT_b| {summary['max_abs_tb']:.3g} K, |dV/I| "
+        f"{summary['max_abs_vi']:.3g}; straggler factor "
+        f"{summary['straggler_factor']}")
+    out["dryrun"] = summary
+    return out
+
+
+def phase_float64(tmp, device="cuda"):
+    """Phase 5's map through the kernel (n_pix 32 x 600 steps, nfreq 2, S
+    input on, mechanism 5) against the float64 reference: the same records
+    (trace_rays_segments) as LOS columns with the streamed path's validity
+    and ds (sampler.los_from_records), S x pixel area as the source areas,
+    through grff/reference.grff_transfer_reference on the host. Bar: lit
+    on-disk T_b within 1% (PERF.md section 1)."""
+    from raytracinggrff_tpu_torch.constants import R_SUN_CM
+    from raytracinggrff_tpu_torch.grff.reference import (
+        grff_transfer_reference)
+    from raytracinggrff_tpu_torch.grff.transfer import (log_spaced_freqs,
+                                                        tb_from_sfu)
+    from raytracinggrff_tpu_torch.grids import UniformGrid
+    from raytracinggrff_tpu_torch.mas.model import (MASModel,
+                                                    synthetic_mas_model)
+    from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
+                                                   image_ray_starts,
+                                                   prepare_cubes,
+                                                   run_ray_tracing_emission)
+    from raytracinggrff_tpu_torch.sampler import los_from_records
+    from raytracinggrff_tpu_torch.tracer_segments import trace_rays_segments
+    grid = UniformGrid.cube(3.0, 128)
+    cubes = prepare_cubes(MASModel(synthetic_mas_model(Path(tmp) / "c64")),
+                          grid, 0.0, verbose=False, device=device)
+    cfg = RayEmissionConfig(**dict(SLICE, n_pix=32, n_steps=600, nfreq=2))
+    tb = run_ray_tracing_emission(cubes=cubes, config=cfg, verbose=False,
+                                  device=device)["emission_cube"]
+    _, _, start, kdir = image_ray_starts(cfg.n_pix, cfg.x_fov,
+                                         cfg.z_observer)
+    t0 = time.perf_counter()
+    tr = trace_rays_segments(cubes["omega_pe"], cubes["ne"], cubes["te"],
+                             cubes["b"], grid, cfg.freq_hz, start, kdir,
+                             cfg.dt, cfg.n_steps, cfg.record_stride, True,
+                             cfg.perturb_ratio, cfg.seg_records)
+    los = los_from_records(*(torch.as_tensor(a) for a in (
+        tr.r_record, tr.s_record, tr.ne, tr.te, tr.b, start)))
+    area = ((2 * cfg.x_fov) / cfg.n_pix * R_SUN_CM) ** 2
+    freqs = log_spaced_freqs(cfg.freq0, cfg.nfreq, cfg.freq_log_step)
+    ref = grff_transfer_reference(
+        los.ds, los.te, los.ne, los.b, los.valid_mask, freqs, area,
+        s_area_cm2=los.s.double() * area, theta_deg=cfg.theta_deg,
+        mechanism=cfg.mechanism, gaunt=cfg.gaunt)
+    tb_ref = tb_from_sfu(ref["flux_o"] + ref["flux_x"], freqs[None, :],
+                         area).reshape(tb.shape)
+    wall = time.perf_counter() - t0
+    lit = disk_mask(cfg.n_pix, cfg.x_fov)[:, :, None] & (tb_ref > 1e4)
+    rel = np.abs(tb[lit] - tb_ref[lit]) / tb_ref[lit]
+    say(f"[13] float64 reference ({wall:.3f} s on the host, "
+        f"{tr.r_record.shape[0]} records x {start.shape[0]} rays x "
+        f"{cfg.nfreq} frequencies): {lit.sum()} lit on-disk values, max rel "
+        f"T_b diff {rel.max():.4g}, median {np.median(rel):.4g} (bar 0.01)")
+    assert lit.sum() > 100 and rel.max() <= 0.01, rel.max()
+    return {"max_rel": float(rel.max()), "lit": int(lit.sum())}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -723,7 +884,7 @@ def main():
         phase_small(out)
         phase_canonical(out)
         with tempfile.TemporaryDirectory() as tmp:
-            phase_main(out, tmp)
+            one = phase_main(out, tmp)
         cubes = phase_map()
         with tempfile.TemporaryDirectory() as tmp:
             phase_los(tmp)
@@ -735,6 +896,8 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             phase_sweep(tmp)
             phase_cli(tmp)
+            phase_mesh(tmp, one)
+            phase_float64(tmp)
     say(f"total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": [{
         "name": "trace_segment", "route": "cuda", "source": KERNEL_SOURCE,

@@ -44,6 +44,11 @@ pass/fail checks of chip_smoke.py.
      lattice presets, no pngs) from a synthetic MAS model: per frequency
      the preset, records, stage times, segments and peak device memory;
      the sweep's wall time, records, segments and kernel launches.
+  7. mesh: the production slice over meshes of every visible card, one
+     rank per card on nccl (chip_smoke.py's phase 12 with the shapes
+     (n, 1) and (n/2, 2), the latter at nfreq 4, and dryrun_multichip(n)),
+     each rank's stages and the straggler factor, against one process;
+     on one card, phase 12 itself (2 and 4 ranks sharing it over gloo).
 The card's name and power limit are printed first and last. Without a
 CUDA device it exits 1.
 """
@@ -68,7 +73,8 @@ from chip_smoke import (SLICE, canonical_scene, compare_records, cuda_ms,
                         plain_segments, say, segment_bound_ms, smi_line)
 
 STAGES = ("wall", "resample", "trace", "transfer", "finish")
-PHASES = ("spread", "profile", "cache", "floor", "s_mode", "sweep")
+PHASES = ("spread", "profile", "cache", "floor", "s_mode", "sweep",
+          "mesh")
 # phase cache: flags added to NVCC_FLAGS for each build; "shipped" adds
 # none, and "shipped_nofma" is EXACT_NVCC_FLAGS
 CACHE_VARIANTS = {
@@ -427,6 +433,19 @@ def phase_sweep():
         f" GiB")
 
 
+def phase_mesh(model, cfg):
+    from raytracinggrff_tpu_torch.pipeline import run_ray_tracing_emission
+    n = torch.cuda.device_count()
+    one = run_ray_tracing_emission(model_path=model, config=cfg,
+                                   verbose=False, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        if n > 1:
+            chip_smoke.phase_mesh(tmp, one, backend=None,
+                                  shapes=((n, 1), (n // 2, 2)))
+        else:
+            chip_smoke.phase_mesh(tmp, one)
+
+
 def main(argv=None):
     phases = sys.argv[1:] if argv is None else argv
     phases = phases or list(PHASES)
@@ -458,6 +477,8 @@ def main(argv=None):
                 phase_s_mode()
             if "sweep" in phases:
                 phase_sweep()
+            if "mesh" in phases:
+                phase_mesh(model, cfg)
         if "floor" in phases:
             phase_floor({name: libs[name]
                          for name in ("shipped", "shipped_nofma")})

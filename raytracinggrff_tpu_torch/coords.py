@@ -25,6 +25,15 @@ def cart_to_sph(x, y, z, phi0_offset_deg=0.0):
     return r, colat, lon
 
 
+def sph_to_cart(r, colat, lon):
+    """Spherical tensors -> Cartesian (x, y, z)
+    (script/resampling_MAS_LOS.py:70-77)."""
+    x = r * torch.sin(colat) * torch.cos(lon)
+    y = r * torch.sin(colat) * torch.sin(lon)
+    z = r * torch.cos(colat)
+    return x, y, z
+
+
 def image_xyz_to_mas_sph(x, y, z, phi0_offset_deg=0.0):
     """Image-frame Cartesian -> MAS (r, colat, lon) with the (x, -z, y)
     swap that every resampler of the reference uses."""

@@ -198,6 +198,12 @@ class MASModel:
         raise ValueError("No electron temperature variable (te or t) found.")
 
 
+def load_mas_var(model: MASModel, var_name: str) -> MASVariable:
+    """One variable of a MAS model directory (load_mas_var_filtered,
+    build_rays.py:48-66)."""
+    return model[var_name]
+
+
 def resample_var_to_cube(var: MASVariable, grid: UniformGrid,
                          phi0_offset_deg=0.0, fill_nan=0.0, device="cuda",
                          chunk=16):

@@ -11,8 +11,8 @@
     (script/synthetic_FF_map_single_thread.py:108-312).
 
 They keep the result keys and the .npz outputs of the JAX package and run
-on `device` ("cuda" by default); a CPU run names device="cpu". Not ported
-yet: meshes.
+on `device` ("cuda" by default); a CPU run names device="cpu". The ray map
+also runs over a parallel.mesh.RayMesh, one rank per device.
 """
 
 from __future__ import annotations
@@ -32,6 +32,8 @@ from .grff.transfer import (get_mw_slice, log_spaced_freqs,
                             make_voxel_update, tb_from_sfu,
                             transfer_carry_init)
 from .mas.model import MASModel, resample_var_to_cube
+from .parallel.mesh import (RayMesh, all_gather, gather_rays, shard_freqs,
+                            shard_rays)
 from .sampler import LosSamples, record_step, valid_and_ds
 from .tracer import check_s_mode
 from .tracer_segments import iter_trace_segments
@@ -240,10 +242,26 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
     (raytracingGRFF/util.py:6-77). A dict passed as `timings` receives
     seconds per stage (resample, trace, transfer, finish) and the segment
     count.
+
+    With `mesh` (a parallel.mesh.RayMesh, one per rank) the map runs on
+    mesh.device, which a conflicting `device` may not contradict: each
+    rank builds the cubes, traces its ray shard through the trace kernel
+    and folds it into an (n_local, nf_local) carry over its frequency
+    block; one all_gather of the fluxes then gives every rank the whole
+    map, as the JAX call returns global arrays. Only rank 0 writes
+    out_path and the plots. Its timings add the all_gather's seconds
+    ("gather"), the ray shards' live steps and their straggler factor.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh is not ported yet: the port runs on one device")
+        if not isinstance(mesh, RayMesh):
+            raise TypeError(f"mesh must be a parallel.mesh.RayMesh, got "
+                            f"{type(mesh).__name__}")
+        asked = torch.device(device)
+        if asked.type != mesh.device.type or asked.index not in (
+                None, mesh.device.index):
+            raise ValueError(f"device {device} conflicts with the mesh's "
+                             f"{mesh.device}")
+        device = mesh.device
     cfg = config or RayEmissionConfig()
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
@@ -284,9 +302,10 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
     pixel_size_cm = (2 * cfg.x_fov) / cfg.n_pix * R_SUN_CM
     pixel_area_cm2 = pixel_size_cm * pixel_size_cm
 
+    stats = {} if mesh is not None else None
     flux_o, flux_x, n_segments, center_los = _streamed_trace_transfer(
         cubes, grid, cfg, start, kdir, frequencies_hz, pixel_area_cm2,
-        device, clock, collect_center=save_plots)
+        device, clock, collect_center=save_plots, mesh=mesh, stats=stats)
 
     t0 = clock.mark()
     freqs = torch.as_tensor(frequencies_hz, dtype=torch.float32,
@@ -317,18 +336,19 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
         "x_coords": xs * R_SUN_M,
         "y_coords": ys * R_SUN_M,
     }
-    if out_path:
+    writer = mesh is None or mesh.rank == 0
+    if out_path and writer:
         np.savez_compressed(out_path, **result)
         log(f"Saved {out_path}")
     result["_sampled"] = center_los
-    if save_plots and out_path:
+    if save_plots and out_path and writer:
         from .utils.plotting import save_center_pixel_plot, save_emission_plot
         save_emission_plot(result, cfg.n_pix, cfg.x_fov, out_path,
                            consider_beam=consider_beam, beam_fwhm=beam_fwhm,
                            device=device)
         save_center_pixel_plot(center_los, cfg.n_pix, out_path, p_index=0)
     if timings is not None:
-        timings.update(clock.totals(), segments=n_segments)
+        timings.update(clock.totals(), segments=n_segments, **(stats or {}))
     return result
 
 
@@ -348,7 +368,7 @@ def _center_los(rows, start, with_cos):
 
 def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
                              pixel_area_cm2, device, clock,
-                             collect_center=False):
+                             collect_center=False, mesh=None, stats=None):
     """Stream trace segments into the transfer carry on the device.
     Per record (pipeline.py:377-396 of the JAX package): a record is valid
     where its position and S are finite and S > 0; ds is the distance from
@@ -361,9 +381,24 @@ def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
     Returns (flux_o, flux_x) as
     (n_rays, Nf) float32 tensors, the number of segments and, with
     collect_center, a one-column LosSamples of the reference's inspection
-    pixel (resample_with_ray_tracing.py:552-604), else None."""
-    freqs = torch.as_tensor(frequencies_hz, dtype=torch.float32,
-                            device=device)
+    pixel (resample_with_ray_tracing.py:552-604), else None.
+
+    With `mesh`, the carry holds this rank's ray shard and frequency block
+    (pipeline.py:421-429 of the JAX package); one all_gather of both
+    fluxes, and one of the inspection ray's records from the rank that
+    traced it, end the call on every rank, and `stats` receives the
+    trace's shard statistics (iter_trace_segments)."""
+    n_rays, nf = start.shape[0], len(frequencies_hz)
+    p_center = inspection_pixel_index(cfg.n_pix)
+    local_start, local_freqs, p_local = start, frequencies_hz, p_center
+    collect_here = collect_center
+    if mesh is not None:
+        local_start = shard_rays(start, mesh)
+        local_freqs = shard_freqs(np.asarray(frequencies_hz), mesh)
+        owner = p_center % mesh.shape[0]      # ray shard of the pixel
+        p_local = p_center // mesh.shape[0]
+        collect_here = collect_center and mesh.ray_index == owner
+    freqs = torch.as_tensor(local_freqs, dtype=torch.float32, device=device)
     update = make_voxel_update(freqs, pixel_area_cm2, cfg.theta_deg,
                                cfg.mechanism, gaunt=cfg.gaunt)
     s_on = bool(cfg.s_input_on)
@@ -371,9 +406,8 @@ def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
     area32 = np.float32(pixel_area_cm2)
     scale = np.float32(R_SUN_CM)
 
-    carry = transfer_carry_init(start.shape[0], freqs.shape[0], device)
-    prev = torch.as_tensor(start, device=device)
-    p_center = inspection_pixel_index(cfg.n_pix)
+    carry = transfer_carry_init(local_start.shape[0], freqs.shape[0], device)
+    prev = torch.as_tensor(local_start, device=device)
     center_rows = []
     n_segments = 0
     segments = iter_trace_segments(
@@ -381,7 +415,8 @@ def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
         cfg.freq_hz, start, kdir, cfg.dt, cfg.n_steps, cfg.record_stride,
         trace_crosssections=True, perturb_ratio=cfg.perturb_ratio,
         seg_records=cfg.seg_records,
-        bvec=cubes.get("bvec") if theta_los else None, s_mode=cfg.s_mode)
+        bvec=cubes.get("bvec") if theta_los else None, s_mode=cfg.s_mode,
+        mesh=mesh, stats=stats)
     while True:
         t0 = clock.mark()
         recs = next(segments, None)
@@ -390,9 +425,9 @@ def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
         if recs is None:
             break
         n_segments += 1
-        if collect_center:
+        if collect_here:
             # a copy, so the segment's record block is not kept alive
-            center_rows.append(recs[:, :, p_center].clone())
+            center_rows.append(recs[:, :, p_local].clone())
         for rec in recs:
             s = rec[3]
             valid, dsv, prev = record_step(
@@ -404,11 +439,23 @@ def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
             carry = update(carry, dsv, rec[5], rec[4], rec[6], valid, sarea,
                            theta_k)
         clock.add("transfer", t1, clock.mark())
+    flux_o, flux_x = carry[0], carry[1]
+    rows = torch.cat(center_rows) if collect_here else None
+    if mesh is not None:
+        t0 = clock.mark()
+        both = gather_rays(torch.stack([flux_o, flux_x], dim=1), mesh,
+                           n_rays, nf)
+        flux_o, flux_x = both[:, 0], both[:, 1]
+        if collect_center:
+            if rows is None:
+                n_rec = -(-cfg.n_steps // cfg.record_stride)
+                rows = torch.zeros((n_rec, 8), device=device)
+            rows = all_gather(rows, mesh)[owner * mesh.shape[1]]
+        clock.add("gather", t0, clock.mark())
     center_los = None
     if collect_center:
-        center_los = _center_los(torch.cat(center_rows),
-                                 start[p_center], theta_los)
-    return carry[0], carry[1], n_segments, center_los
+        center_los = _center_los(rows, start[p_center], theta_los)
+    return flux_o, flux_x, n_segments, center_los
 
 
 # ---------------------------------------------------------------------------

@@ -228,6 +228,33 @@ def trace_rays(table, grid: UniformGrid, freq_hz, start, kdir, dt: float,
                        torch.stack(ks) if record_k else None)
 
 
+def trace_rays_from_cube(omega_pe_cube, x_grid, y_grid, z_grid, freq_hz,
+                         x_start, y_start, z_start, kvec_in_norm, dt,
+                         n_steps, record_stride=10, trace_crosssections=False,
+                         perturb_ratio=2.0, s_mode="cumulative",
+                         device="cuda"):
+    """Reference-signature wrapper (trace_ray, gpu_raytrace.py:414-470) on
+    `device`, through tracer_segments.iter_trace_segments (the kernel on
+    a CUDA device). omega_pe_cube (NaN read as 0) on the uniform
+    x/y/z_grid axes, ray starts as three (n_rays,) arrays, kvec_in_norm
+    (n_rays, 3).
+    Returns (r_record (n_records, n_rays, 3), s_record (n_records,
+    n_rays)) as tensors on `device`."""
+    from .tracer_segments import iter_trace_segments  # it imports tracer
+    grid = UniformGrid.from_arrays(x_grid, y_grid, z_grid)
+    cube = torch.nan_to_num(torch.as_tensor(
+        np.asarray(omega_pe_cube, np.float32), device=device))
+    start = np.column_stack([np.asarray(a, np.float32)
+                             for a in (x_start, y_start, z_start)])
+    zero = torch.zeros_like(cube)
+    recs = torch.cat(list(iter_trace_segments(
+        cube, zero, zero, zero, grid, float(freq_hz), start,
+        np.asarray(kvec_in_norm, np.float32), float(dt), int(n_steps),
+        int(record_stride), bool(trace_crosssections),
+        float(perturb_ratio), s_mode=s_mode)))
+    return recs[:, 0:3].transpose(1, 2), recs[:, 3]
+
+
 def cos_theta_signed(kvec, bv):
     """Signed cos(theta) between the sampled B vector and the wave vector
     (last axis 3). Zero B or k gives 0, the theta = 90 fallback."""

@@ -23,6 +23,7 @@ import torch
 
 from .grids import UniformGrid
 from .ops.trace_segment import trace_segment
+from .parallel.mesh import all_gather, shard_rays
 from .tracer import gradient_cubes, init_k_vectors
 
 
@@ -99,19 +100,48 @@ def iter_trace_segments(omega_pe_cube, ne_cube, te_cube, b_cube,
                         grid: UniformGrid, freq_hz, start, kdir, dt, n_steps,
                         record_stride=10, trace_crosssections=True,
                         perturb_ratio=2.0, seg_records=64, bvec=None,
-                        s_mode="cumulative"):
+                        s_mode="cumulative", mesh=None, stats=None):
     """Yield (rps, 8, n_rays) record blocks, one per segment, on the
     device of `omega_pe_cube`. start, kdir: (n_rays, 3) arrays or
     tensors. `bvec` (image-frame Cartesian B cubes) makes row 7 the signed
     cos(theta) between B and the wave vector; otherwise it is 0. Row 3
     holds cumulative S, or with s_mode='per_step' the ratio of each
-    record's last step."""
+    record's last step.
+
+    With `mesh` (a parallel.mesh.RayMesh; the cubes on mesh.device),
+    start and kdir still list every ray, and each rank traces its own ray
+    shard (ray i on shard i mod n_ray_shards) and yields that shard's
+    (rps, 8, n_local) blocks; the JAX generator yields the global array,
+    sharded over 'rays', instead. A dict passed as `stats` then receives
+    'shard_live_steps', per ray shard the steps of records with S > 0 and
+    a finite position (summed on the device, read once at the end and
+    all-gathered), and 'straggler_factor', their max over their mean. So
+    every rank of the group must run the generator to its end."""
+    if mesh is not None:
+        start, kdir = shard_rays(start, mesh), shard_rays(kdir, mesh)
     tcube, scube = prepare_trace_inputs(omega_pe_cube, ne_cube, te_cube,
                                         b_cube, grid, bvec)
     state = initial_state(tcube, grid, freq_hz, start, kdir)
-    yield from run_segments(tcube, scube, state, grid, dt, n_steps,
+    segments = run_segments(tcube, scube, state, grid, dt, n_steps,
                             record_stride, trace_crosssections,
                             perturb_ratio, seg_records, s_mode)
+    if mesh is None or stats is None:
+        yield from segments
+        return
+    live = torch.zeros(1, dtype=torch.int64, device=state.device)
+    plan, _ = segment_plan(n_steps, record_stride, seg_records)
+    for (n_first, rps), recs in zip(plan, segments):
+        steps = torch.full((rps,), record_stride, dtype=torch.int64,
+                           device=recs.device)
+        steps[0] = n_first
+        ok = (recs[:, 3] > 0) & torch.isfinite(recs[:, 0:3]).all(dim=1)
+        live += (ok.sum(dim=1) * steps).sum()
+        yield recs
+    per_rank = [int(c) for c in all_gather(live, mesh)]
+    shard = per_rank[::mesh.shape[1]]        # freq index 0 of each ray shard
+    stats["shard_live_steps"] = shard
+    stats["straggler_factor"] = round(
+        max(shard) / max(1.0, sum(shard) / len(shard)), 4)
 
 
 def trace_rays_segments(omega_pe_cube, ne_cube, te_cube, b_cube,

@@ -136,8 +136,10 @@ def test_model_path_matches_jax_xla(corona, tmp_path):
 
 
 @pytest.mark.parametrize("option", [{"mesh": object()}])
-def test_unported_options_raise(corona, option):
-    with pytest.raises(NotImplementedError):
+def test_mesh_option_must_be_a_ray_mesh(corona, option):
+    """A mesh that is not a parallel.mesh.RayMesh (a JAX Mesh, say) is
+    refused before any work."""
+    with pytest.raises(TypeError, match="RayMesh"):
         run_ray_tracing_emission(model_path=corona, device="cpu",
                                  verbose=False, n_pix=2, n_steps=10,
                                  grid_n=8, **option)
