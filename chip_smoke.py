@@ -10,9 +10,13 @@ cross-sections and S input on) through run_ray_tracing_emission, and checks
 the map; then drives the straight-LOS chain, the gyroresonance map, the
 low-band LOS vs ray-tracing comparison, per-step cross-sections, three
 maps of the TbSpectra sweep, the other device CLIs at the defaults of
-their CLIs, the production map over multi-device meshes and a map against
-the float64 transfer reference. Phases:
-  1. versions, card, kernel build
+their CLIs, the production map over multi-device meshes (spawned and from torchrun), a
+map against the float64 transfer reference, the FMA build against the
+shipped exact build over whole traces and maps, and the benchmark harness.
+Phases:
+  1. versions, card, kernel build: the shipped library (-fmad=false) and
+     the FMA build (FMA_NVCC_FLAGS, for phase 14), one nvcc each, started
+     together
   2. kernel vs plain on a non-reflecting scene, every ray within tolerance
   3. kernel vs plain on the canonical scene's first segment (>= 99% of
      rays within tolerance), with both times and the kernel's bound
@@ -42,10 +46,25 @@ the float64 transfer reference. Phases:
  12. the production map over meshes (parallel/): (1, 1) in this process on
      nccl, (2, 1) and (2, 2) (nfreq 4) as spawned ranks on the one card
      with gloo, against the one-process map (T_b rtol 1e-6, V/I atol
-     1e-6), each rank's launches = segments; then
-     parallel.dryrun.dryrun_multichip(4) with gloo on the card
+     1e-6), each rank's launches = segments; (2, 1) from `python -m
+     torch.distributed.run --standalone --nproc-per-node 2` (make_mesh's
+     env:// rendezvous, both ranks on cuda:0 over gloo) under the same
+     bar, its exit code checked; then parallel.dryrun.dryrun_multichip(4)
+     with gloo on the card
  13. phase 5's map through the kernel against the float64 reference
      (grff/reference.py) on the same records: lit on-disk T_b within 1%
+ 14. the FMA build (FMA_NVCC_FLAGS) vs the shipped, exact build: (a) the
+     canonical trace (256^2 x 5000 steps x 128^3, 8 segments) in
+     lockstep, every record under ROW_TOL (printed per segment, with the
+     rays that part; asserted: no value NaN in one build only), and the
+     first segment's time through each; (b) the shipped build's last
+     segment against the plain version from the same state, rows 0-6 bit
+     for bit; (c) the production map and sweep index 29 (800 MHz, 576^3)
+     through both, against DV_BAR_FIXED and rel T_b 5e-3 over lit on-disk
+     values, with the worst pixels; where the FMA build misses a bar, the
+     shipped flags must hold -fmad=false
+ 15. the benchmark harness (bench_torch.py) at the canonical size, trace
+     and pipeline mode, --repeat 3: its two JSON lines, 32 launches each
 Each path that traces rays runs with the launch count set to 0 just
 before it and checks it against its segment count just after.
 The last lines are one JSON object per kernel, the card's name and power
@@ -57,6 +76,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -65,6 +85,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from raytracinggrff_tpu_torch.harness import (make_cube, make_rays, smi_line,
+                                              steps_run)
 
 KERNEL_SOURCE = "raytracinggrff_tpu_torch/csrc/trace_segment.cu"
 KERNEL_REPLACES = "raytracinggrff_tpu/ops/pallas_trace.py:654"
@@ -101,13 +124,6 @@ def say(msg):
     print(msg, flush=True)
 
 
-def smi_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, reps):
     """Mean milliseconds of fn() over reps runs, by CUDA events."""
     fn()
@@ -122,22 +138,29 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def compare_records(rec_k, rec_p):
-    """Per-ray agreement of (rps, 8, n_rays) record blocks under ROW_TOL
-    (NaN matches NaN); returns (ok mask over rays, max |diff| per row)."""
-    a = rec_k.double().cpu().numpy()
-    b = rec_p.double().cpu().numpy()
-    ok = np.ones(a.shape[2], bool)
+def record_agreement(rec_a, rec_b):
+    """Agreement of (rps, 8, n_rays) record blocks under ROW_TOL on their
+    device (NaN matches NaN): the (rps, n_rays) mask of records within
+    tolerance in every row, and the max |diff| per row."""
+    a, b = rec_a.double(), rec_b.double()
+    ok = torch.ones((a.shape[0], a.shape[2]), dtype=torch.bool,
+                    device=a.device)
     worst = []
     for row, (atol, rtol) in enumerate(ROW_TOL):
         x, y = a[:, row], b[:, row]
-        same_nan = np.isnan(x) & np.isnan(y)
-        diff = np.where(same_nan, 0.0, np.abs(x - y))
-        good = (diff <= atol + rtol * np.abs(y)) | same_nan
-        ok &= good.all(axis=0)
-        worst.append(float(np.nanmax(diff)) if np.isfinite(diff).any()
-                     else float("nan"))
+        same_nan = torch.isnan(x) & torch.isnan(y)
+        diff = torch.where(same_nan, 0.0, (x - y).abs())
+        ok &= (diff <= atol + rtol * y.abs()) | same_nan
+        worst.append(float(diff[~torch.isnan(diff)].max())
+                     if torch.isfinite(diff).any() else float("nan"))
     return ok, worst
+
+
+def compare_records(rec_k, rec_p):
+    """Per-ray agreement of (rps, 8, n_rays) record blocks under ROW_TOL
+    (NaN matches NaN); returns (ok mask over rays, max |diff| per row)."""
+    ok, worst = record_agreement(rec_k, rec_p)
+    return ok.all(dim=0).cpu().numpy(), worst
 
 
 def bundle_scene(n=41, extent=2.0, freq=80e6):
@@ -158,20 +181,28 @@ def bundle_scene(n=41, extent=2.0, freq=80e6):
 
 
 def canonical_scene(n_pix=256):
-    """The canonical trace workload of bench.py: a Newkirk-like density
-    cube, overdense below r = 1, and the n_pix^2 image-plane rays."""
-    from raytracinggrff_tpu_torch.grids import UniformGrid
-    from raytracinggrff_tpu_torch.pipeline import image_ray_starts
-    grid = UniformGrid.cube(3.0, 128)
-    x, y, z = np.meshgrid(*grid.axes(), indexing="ij")
-    r = np.sqrt(x * x + y * y + z * z)
-    ne = 4.2e4 * 10 ** (4.32 / np.maximum(r, 0.5))
-    wpe = 8.93e3 * np.sqrt(ne) * 2 * np.pi
-    t = {k: torch.as_tensor(v.astype(np.float32), device="cuda")
+    """The canonical trace workload of bench.py and of the port's harness
+    (harness.make_cube, make_rays): a Newkirk-like density cube, 128^3,
+    overdense below r = 1, and the n_pix^2 image-plane rays."""
+    grid, wpe, ne = make_cube(128, 75e6)
+    t = {k: torch.as_tensor(v, device="cuda")
          for k, v in dict(wpe=wpe, ne=ne, te=np.full_like(ne, 1.4e6),
                           b=np.ones_like(ne)).items()}
-    _, _, start, kdir = image_ray_starts(n_pix, 1.44, 3.0)
+    start, kdir = make_rays(n_pix)
     return grid, t, start, kdir
+
+
+@contextlib.contextmanager
+def kernel_library(lib):
+    """Make the trace_segment wrapper launch from `lib` (a library of
+    ops/trace_segment.load_library) while the block runs."""
+    from raytracinggrff_tpu_torch.ops import trace_segment as ts
+    saved = ts._library
+    ts._library = lambda: lib
+    try:
+        yield
+    finally:
+        ts._library = saved
 
 
 @contextlib.contextmanager
@@ -232,19 +263,39 @@ def hold_segment(tag, what, args, min_share):
     return rec_k, worst
 
 
+def build_all(flag_sets):
+    """Build every {name: nvcc flags} library at once (one nvcc each) and
+    load them; prints each build's ptxas registers and spills."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raytracinggrff_tpu_torch.ops import trace_segment as ts
+    with ThreadPoolExecutor(len(flag_sets)) as pool:
+        built = dict(zip(flag_sets, pool.map(ts.build_library,
+                                             flag_sets.values())))
+    libs = {}
+    for name, (path, log) in built.items():
+        libs[name] = ts.load_library(path)
+        for line in log.splitlines():
+            if "Compiling" in line or "spill" in line or "registers" in line:
+                say(f"[build] {name} ptxas: {line.strip()}")
+    return libs
+
+
 def phase_build():
+    """Build the shipped library (NVCC_FLAGS) and the FMA build
+    (FMA_NVCC_FLAGS, measured in phase 14) at once; returns the FMA
+    library."""
     from raytracinggrff_tpu_torch.ops import trace_segment as ts
     say(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
     say(f"nvidia-smi: {smi_line()}")
     t0 = time.perf_counter()
-    path, log = ts.build_library()
+    libs = build_all({"shipped": ts.NVCC_FLAGS, "fma": ts.FMA_NVCC_FLAGS})
     ts._library()
-    say(f"[1] built {path.name} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {' '.join(ts.NVCC_FLAGS)})")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            say(f"    ptxas: {line.strip()}")
+    say(f"[1] built the shipped and the FMA library in "
+        f"{time.perf_counter() - t0:.1f} s, one nvcc each at once (nvcc "
+        f"{' '.join(ts.NVCC_FLAGS)}; the FMA build drops -fmad=false)")
+    return libs["fma"]
 
 
 def small_segment_args():
@@ -348,9 +399,8 @@ def phase_main(out, tmp):
     model = synthetic_mas_model(Path(tmp) / "corona", timestep=2)
     cfg = RayEmissionConfig(**SLICE)
     npz = Path(tmp) / "ray_tracing_emission.npz"
-    n_rec = -(-cfg.n_steps // cfg.record_stride)
     n_seg = n_segments(cfg)
-    steps_run = 1 + (n_rec - 1) * cfg.record_stride
+    steps = steps_run(cfg.n_steps, cfg.record_stride)
     for run in (1, 2):
         timings = {}
         trace_segment.launches = 0
@@ -361,10 +411,10 @@ def phase_main(out, tmp):
         wall = time.perf_counter() - t0
         launches = trace_segment.launches
         assert launches == n_seg == timings["segments"], (launches, n_seg)
-        rate = 256 * 256 * steps_run / timings["trace"]
+        rate = 256 * 256 * steps / timings["trace"]
         say(f"[4] run {run}: wall {wall:.3f} s; resample "
             f"{timings['resample']:.4f} s, trace {timings['trace']:.4f} s "
-            f"({rate:.4g} ray-steps/s over {steps_run} steps), transfer "
+            f"({rate:.4g} ray-steps/s over {steps} steps), transfer "
             f"{timings['transfer']:.4f} s, finish {timings['finish']:.4f} s;"
             f" kernel launches {launches} = segments {n_seg}")
     tb = res["emission_cube"]
@@ -401,20 +451,61 @@ def map_kernel_vs_plain(tag, cubes, bar, device="cuda", **overrides):
     with plain_segments():
         r_p = run_ray_tracing_emission(cubes=cubes, config=cfg,
                                        verbose=False, device=device)
-    a, b = r_p["emission_cube"], r_k["emission_cube"]
+    hold_maps(tag, f"map kernel vs plain ({cfg.s_mode} S, {launches} "
+              f"kernel launch(es))", r_p, r_k, bar)
+
+
+def map_diff(tag, what, ref, test, bar, disk=None):
+    """How far the map `test` lies from `ref` (result dicts) over lit
+    values (> 1e4 K in both; on the disk too where `disk` is given),
+    printed beside the map bars: rel T_b <= 5e-3 (the bar of
+    tests/test_streamed_pipeline.py) and |dV/I| within `bar`, one of
+    DV_BAR_FIXED and DV_BAR_GR. Returns the numbers and whether the bars
+    hold."""
+    a, b = ref["emission_cube"], test["emission_cube"]
     lit = (a > 1e4) & (b > 1e4)
+    if disk is not None:
+        lit &= disk[:, :, None]
     rel = np.abs(b[lit] - a[lit]) / a[lit]
-    dv = np.abs(r_k["emission_polVI_cube"][lit]
-                - r_p["emission_polVI_cube"][lit])
+    dv = np.abs(test["emission_polVI_cube"][lit]
+                - ref["emission_polVI_cube"][lit])
     p99 = np.percentile(dv, 99)
     above = int((dv > 1e-4).sum())
-    say(f"[{tag}] map kernel vs plain ({cfg.s_mode} S, {launches} kernel "
-        f"launch(es)): {lit.sum()} lit values, max rel T_b "
-        f"diff {rel.max():.3g}, |V/I diff| max {dv.max():.3g}, p99 "
-        f"{p99:.3g}, {above} above 1e-4 (bar: max {bar[0]:g}, p99 "
-        f"{bar[1]:g}, share above 1e-4 {bar[2]:g})")
-    assert lit.sum() > 20 and rel.max() <= 5e-3
-    assert dv.max() <= bar[0] and p99 <= bar[1] and above <= bar[2] * dv.size
+    held = bool(lit.sum() > 20 and rel.max() <= 5e-3 and dv.max() <= bar[0]
+                and p99 <= bar[1] and above <= bar[2] * dv.size)
+    say(f"[{tag}] {what}: {lit.sum()} lit values, max rel T_b diff "
+        f"{rel.max():.3g}, |V/I diff| max {dv.max():.3g}, p99 {p99:.3g}, "
+        f"{above} above 1e-4 (bar: max {bar[0]:g}, p99 {bar[1]:g}, share "
+        f"above 1e-4 {bar[2]:g}; {'held' if held else 'missed'})")
+    return {"lit": int(lit.sum()), "max_rel_tb": float(rel.max()),
+            "max_dv": float(dv.max()), "p99_dv": float(p99), "above": above,
+            "held": held}
+
+
+def hold_maps(tag, what, ref, test, bar, disk=None):
+    """map_diff, asserting that the bars hold."""
+    out = map_diff(tag, what, ref, test, bar, disk)
+    assert out["held"], out
+    return out
+
+
+def worst_pixels(tag, ref, test, n=3):
+    """Print the n pixels of largest rel T_b difference between two maps:
+    (row, column, frequency), both T_b and V/I, and the mean T_b of each
+    map's four neighbours of the pixel."""
+    a, b = ref["emission_cube"], test["emission_cube"]
+    rel = np.abs(b - a) / np.maximum(np.abs(a), 1e-30)
+    for flat in np.argsort(rel, axis=None)[::-1][:n]:
+        i, j, f = np.unravel_index(flat, a.shape)
+        near = [(i + di, j + dj) for di, dj in ((-1, 0), (1, 0), (0, -1),
+                                                (0, 1))
+                if 0 <= i + di < a.shape[0] and 0 <= j + dj < a.shape[1]]
+        say(f"[{tag}] pixel ({i}, {j}, {f}): T_b {b[i, j, f]:.6g} vs "
+            f"{a[i, j, f]:.6g} K (rel {rel[i, j, f]:.3g}), V/I "
+            f"{test['emission_polVI_cube'][i, j, f]:.4g} vs "
+            f"{ref['emission_polVI_cube'][i, j, f]:.4g}; neighbours' mean "
+            f"T_b {np.mean([b[p][f] for p in near]):.6g} vs "
+            f"{np.mean([a[p][f] for p in near]):.6g} K")
 
 
 def phase_map():
@@ -756,15 +847,80 @@ def hold_mesh_map(tag, ranks, one, n_seg):
             "max_vi": d_vi, "ranks": ranks}
 
 
+# phase 12's torchrun script: the README's multi-device example with its
+# devices and backend named, so that two ranks share one card over gloo.
+# Each rank pickles its map, coordinates, stages and kernel launches; rank
+# 0 alone writes out_path, as in the example.
+TORCHRUN_SCRIPT = """\
+import json, pickle, sys, time
+import torch.distributed as dist
+from raytracinggrff_tpu_torch import (RayEmissionConfig, make_mesh,
+                                      run_ray_tracing_emission)
+from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
+
+model_path, out_dir = sys.argv[1], sys.argv[2]
+config, devices = json.loads(sys.argv[3]), json.loads(sys.argv[4])
+mesh = make_mesh(n_ray_shards=2, devices=devices, backend="gloo")
+timings = {}
+trace_segment.launches = 0
+t0 = time.perf_counter()
+result = run_ray_tracing_emission(
+    model_path=model_path, config=RayEmissionConfig(**config), mesh=mesh,
+    device=mesh.device, out_path=f"{out_dir}/map.npz", verbose=False,
+    timings=timings)
+wall = time.perf_counter() - t0
+with open(f"{out_dir}/rank{mesh.rank}.pkl", "wb") as f:
+    pickle.dump({"rank": mesh.rank, "coords": (mesh.ray_index,
+                                               mesh.freq_index),
+                 "emission_cube": result["emission_cube"],
+                 "emission_polVI_cube": result["emission_polVI_cube"],
+                 "wall": wall, "timings": timings,
+                 "launches": trace_segment.launches}, f)
+dist.destroy_process_group()
+"""
+
+
+def torchrun_map(tmp, model, cfg, device):
+    """The production map over a (2, 1) mesh from `python -m
+    torch.distributed.run --standalone --nproc-per-node 2`: make_mesh's
+    env:// rendezvous, both ranks on `device` over gloo. Returns the
+    ranks' results and rank 0's out_path map."""
+    import dataclasses
+    import pickle
+    from raytracinggrff_tpu_torch.parallel import launch
+    out = Path(tmp) / "torchrun"
+    out.mkdir()
+    script = out / "emission.py"
+    script.write_text(TORCHRUN_SCRIPT)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent),
+               OMP_NUM_THREADS="1")
+    devices = [str(launch.rank_devices(device, 1)[0])] * 2
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", str(script), str(model), str(out),
+         json.dumps(dataclasses.asdict(cfg)), json.dumps(devices)],
+        cwd=out, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, (proc.returncode, proc.stdout[-4000:],
+                                  proc.stderr[-4000:])
+    say(f"[12] torchrun --standalone --nproc-per-node 2, devices {devices}, "
+        f"gloo: exit code 0, {wall:.3f} s from start to exit")
+    ranks = [pickle.loads((out / f"rank{r}.pkl").read_bytes())
+             for r in (0, 1)]
+    return ranks, dict(np.load(out / "map.npz"))
+
+
 def phase_mesh(tmp, one, device="cuda", backend="gloo",
                shapes=((2, 1), (2, 2)), **overrides):
     """The production map (SLICE with `overrides`) over meshes, against
     phase 4's map `one`: (1, 1) in this process, then each of `shapes` as
     spawned ranks on `device` ("cuda" deals them over the cards) with
     `backend` (None: nccl on CUDA), with nfreq 4 where the frequency axis
-    is sharded; then dryrun_multichip over the most ranks. The card
-    machine has one H100, and NCCL refuses two ranks on one device, so
-    here the ranks share cuda:0 over gloo."""
+    is sharded; then (2, 1) from torchrun (torchrun_map); then
+    dryrun_multichip over the most ranks. The card machine has one H100,
+    and NCCL refuses two ranks on one device, so here the ranks share
+    cuda:0 over gloo."""
     import dataclasses
     import torch.distributed as dist
     from raytracinggrff_tpu_torch.mas.model import synthetic_mas_model
@@ -801,6 +957,11 @@ def phase_mesh(tmp, one, device="cuda", backend="gloo",
         out[shape] = hold_mesh_map(
             f"{shape} {backend or 'nccl'}, spawned, nfreq {c.nfreq}", ranks,
             ref, n_seg)
+    ranks, saved = torchrun_map(tmp, model, cfg, device)
+    out["torchrun"] = hold_mesh_map("(2, 1) gloo, torchrun", ranks, one,
+                                    n_seg)
+    for key in ("emission_cube", "emission_polVI_cube"):
+        np.testing.assert_array_equal(saved[key], ranks[0][key])
     n = max(a * b for a, b in shapes)
     t0 = time.perf_counter()
     summary = dryrun.dryrun_multichip(n, device=device, backend=backend)
@@ -871,6 +1032,174 @@ def phase_float64(tmp, device="cuda"):
     return {"max_rel": float(rel.max()), "lit": int(lit.sum())}
 
 
+def fma_trace(libs, n_pix=256, n_steps=5000):
+    """Phase 14 (a) and (b): the canonical trace (n_pix^2 x n_steps x 128^3
+    at 75 MHz) through the FMA build and the shipped build (`libs`, by
+    those names) in lockstep, every record compared segment by segment
+    under ROW_TOL, with the first rays to part and where; the first
+    segment timed through each in turns (FMA, shipped, shipped, FMA); then
+    the shipped build's last segment against the plain version from the
+    same state, record rows 0-6 bit for bit. The one assertion of (a) is
+    that no record value is NaN in one build and finite in the other."""
+    from raytracinggrff_tpu_torch.ops.trace_segment import (
+        trace_segment, trace_segment_plain)
+    from raytracinggrff_tpu_torch.tracer_segments import (initial_state,
+                                                          prepare_trace_inputs,
+                                                          segment_plan)
+    grid, f, start, kdir = canonical_scene(n_pix)
+    tcube, scube = prepare_trace_inputs(f["wpe"], f["ne"], f["te"], f["b"],
+                                        grid)
+    state_f = state_s = initial_state(tcube, grid, 75e6, start, kdir)
+    first = (tcube, scube, state_s, grid, 6e-3, 1, 10, 64)
+    ms = {"fma": [], "shipped": []}
+    for name in ("fma", "shipped", "shipped", "fma"):
+        with kernel_library(libs[name]):
+            ms[name].append(cuda_ms(lambda: trace_segment(*first), reps=5))
+    say(f"[14] (a) first segment ({n_pix ** 2} rays x 631 steps) in turns: "
+        f"FMA build {['%.4f' % t for t in ms['fma']]} ms, shipped "
+        f"{['%.4f' % t for t in ms['shipped']]} ms")
+    plan, _ = segment_plan(n_steps, 10, 64)
+    n_rays = state_s.shape[1]
+    every = torch.ones(n_rays, dtype=torch.bool, device=state_s.device)
+    parted_at = torch.full((n_rays,), -1, device=state_s.device)
+    parted, nan_parted, shares, rec0 = [], 0, [], 0
+    for i, (n_first, rps) in enumerate(plan):
+        before = state_s
+        state_s, rec_s = trace_segment(tcube, scube, state_s, grid, 6e-3,
+                                       n_first, 10, rps)
+        with kernel_library(libs["fma"]):
+            state_f, rec_f = trace_segment(tcube, scube, state_f, grid,
+                                           6e-3, n_first, 10, rps)
+        ok, worst = record_agreement(rec_f, rec_s)
+        every &= ok.all(dim=0)
+        nan_parted += int((torch.isnan(rec_f) != torch.isnan(rec_s)).sum())
+        new = (parted_at < 0) & ~ok.all(dim=0)
+        bad_at = (~ok).int().argmax(dim=0)
+        parted_at = torch.where(new, rec0 + bad_at, parted_at)
+        for ray in torch.nonzero(new)[:6 - len(parted), 0].tolist():
+            r = int(bad_at[ray])
+            parted.append((ray, rec0 + r, rec_f[r, :7, ray].tolist(),
+                           rec_s[r, :7, ray].tolist()))
+        rec0 += rps
+        shares.append(float(ok[-1].double().mean()))
+        say(f"[14] (a) segment {i} ({n_first} + {rps - 1} x 10 steps): FMA "
+            f"vs shipped, {shares[-1]:.5f} of rays within tolerance at its "
+            f"last record, {float(every.double().mean()):.5f} at every "
+            f"record so far; max |diff| per row "
+            f"{['%.3g' % w for w in worst]}")
+    dr = (rec_f[-1, 0:3] - rec_s[-1, 0:3]).double().norm(dim=0)
+    dr = dr[torch.isfinite(dr)].cpu().numpy()
+    p50, p99 = np.percentile(dr, [50, 99])
+    at = parted_at[parted_at >= 0].cpu().numpy()
+    where = np.percentile(at, [0, 50, 100]).tolist() if at.size else []
+    say(f"[14] (a) whole trace: {float(every.double().mean()):.5f} of "
+        f"{n_rays} rays within tolerance at every record; {at.size} parted, "
+        f"at records {where} (min, median, max); |dr| at the final record "
+        f"over {dr.size} rays "
+        f"with a finite position: p50 {p50:.4g}, p99 {p99:.4g}, max "
+        f"{dr.max():.4g} R_sun; record values NaN in one build only: "
+        f"{nan_parted}")
+    for ray, rec, a, b in parted:
+        say(f"[14] (a) ray {ray} (pixel {ray // n_pix}, {ray % n_pix}) parts "
+            f"at record {rec} (step {1 + 10 * rec}): rows x, y, z, S, ne, "
+            f"te, b {['%.7g' % v for v in a]} (FMA) vs "
+            f"{['%.7g' % v for v in b]} (shipped)")
+    assert nan_parted == 0, nan_parted
+
+    n_first, rps = plan[-1]
+    _, rec_p = trace_segment_plain(tcube, scube, before, grid, 6e-3, n_first,
+                                   10, rps)
+    a, b = rec_s[:, :7], rec_p[:, :7]
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    say(f"[14] (b) last segment ({n_first} + {rps - 1} x 10 steps from the "
+        f"shipped build's state): shipped build vs plain, rows 0-6 "
+        f"{int(same.sum())} of {same.numel()} values bit for bit; rows "
+        f"unequal {sorted(set(torch.nonzero(~same)[:, 1].tolist()))}")
+    assert same.all(), "the shipped build parted from the plain version"
+    return {"ms": ms, "last_record_shares": shares,
+            "every_record_share": float(every.double().mean()),
+            "parted": int(at.size), "dr": (float(p50), float(p99),
+                                           float(dr.max()))}
+
+
+def phase_fma(tmp, fma_lib):
+    """Phase 14: the FMA build (FMA_NVCC_FLAGS) against the shipped build
+    (NVCC_FLAGS, -fmad=false) over whole traces: fma_trace, then (c) the
+    production map (phase 4's model and SLICE) and the sweep map at index
+    29 (800 MHz, 576^3, 3,000 records) through both builds, against
+    DV_BAR_FIXED in |dV/I| and 5e-3 in relative T_b over lit on-disk
+    values, with the worst pixels. Where the FMA build misses a bar, the
+    shipped build must be the exact one."""
+    from raytracinggrff_tpu_torch.cli.tb_spectra import (run_sweep,
+                                                         sweep_frequencies)
+    from raytracinggrff_tpu_torch.grids import UniformGrid
+    from raytracinggrff_tpu_torch.mas.model import (MASModel,
+                                                    synthetic_mas_model)
+    from raytracinggrff_tpu_torch.ops import trace_segment as ts
+    from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
+                                                   prepare_cubes,
+                                                   run_ray_tracing_emission)
+    libs = {"fma": fma_lib, "shipped": ts._library()}
+    out = fma_trace(libs)
+    model = synthetic_mas_model(Path(tmp) / "corona_fma", timestep=2)
+    cubes = prepare_cubes(MASModel(model), UniformGrid.cube(3.0, 128), 0.0,
+                          verbose=False, device="cuda")
+    maps = {}
+    for name, lib in libs.items():
+        with kernel_library(lib):
+            maps[name] = run_ray_tracing_emission(
+                cubes=cubes, config=RayEmissionConfig(**SLICE),
+                verbose=False, device="cuda")
+    del cubes
+    out["production"] = map_diff(
+        "14", "(c) production map 256^2 x 5000 x 128^3, FMA vs shipped",
+        maps["shipped"], maps["fma"], DV_BAR_FIXED, disk_mask(256, 1.44))
+    worst_pixels("14", maps["shipped"], maps["fma"])
+    sweep_model = synthetic_mas_model(Path(tmp) / "corona_fma_sweep")
+    freqs = sweep_frequencies()[[29]]
+    for name, lib in libs.items():
+        timings = []
+        with kernel_library(lib):
+            rows = run_sweep(sweep_model, freqs, Path(tmp) / f"fma_{name}",
+                             n_pix=128, phi0_offset=-140.0, device="cuda",
+                             timings=timings, verbose=False)
+        maps[name] = dict(np.load(rows[0]["npz"]))
+    t = timings[0]
+    out["sweep29"] = map_diff(
+        "14", f"(c) sweep index 29 ({t['freq_hz'] / 1e6:.1f} MHz, "
+        f"{t['grid_n']}^3, {t['records']} records), FMA vs shipped",
+        maps["shipped"], maps["fma"], DV_BAR_FIXED,
+        disk_mask(128, t["x_fov"]))
+    worst_pixels("14", maps["shipped"], maps["fma"])
+    held = out["production"]["held"] and out["sweep29"]["held"]
+    say(f"[14] (c) the FMA build {'holds' if held else 'misses'} the map "
+        f"bars; shipped nvcc flags end in {ts.NVCC_FLAGS[-1]}")
+    assert held or "-fmad=false" in ts.NVCC_FLAGS
+    return out
+
+
+def phase_harness():
+    """Phase 15: the port's benchmark harness (bench_torch.py) in this
+    process at the canonical size, trace and pipeline mode, --repeat 3;
+    each prints its JSON line. Every run (one warm-up, three repeats)
+    launches the kernel once per segment."""
+    from raytracinggrff_tpu_torch import harness
+    from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
+    out = {}
+    for mode in ([], ["--pipeline"]):
+        trace_segment.launches = 0
+        res = harness.main(["--repeat", "3", *mode])
+        launches = trace_segment.launches
+        say(f"[15] harness {res['metric']}: {res['value']:.6g} "
+            f"{res['unit']}, median of {res['times_s']}; kernel launches "
+            f"{launches} = 4 runs x 8 segments")
+        assert launches == 4 * 8, launches
+        assert np.isfinite(res["value"]) and res["value"] > 0
+        assert {"gpu", "power_limit"} <= set(res["workload"])
+        out[res["metric"]] = res
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -879,7 +1208,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     out = {}
     t_all = time.perf_counter()
-    phase_build()
+    fma_lib = phase_build()
     with torch.inference_mode():
         phase_small(out)
         phase_canonical(out)
@@ -898,6 +1227,8 @@ def main():
             phase_cli(tmp)
             phase_mesh(tmp, one)
             phase_float64(tmp)
+            phase_fma(tmp, fma_lib)
+        phase_harness()
     say(f"total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": [{
         "name": "trace_segment", "route": "cuda", "source": KERNEL_SOURCE,

@@ -15,8 +15,8 @@ pass/fail checks of chip_smoke.py.
   3. cache: the kernel's per-ray cell cache, and FMA contraction. Four
      builds of the kernel (CACHE_VARIANTS: the uncached design, forced
      to miss on every evaluation by -DRGRFF_CACHE_OFF, and the shipped
-     cache, each with nvcc's FMA contraction, NVCC_FLAGS, and with
-     -fmad=false, EXACT_NVCC_FLAGS), with their SASS opcode counts
+     cache, each with nvcc's FMA contraction, FMA_NVCC_FLAGS, and with
+     -fmad=false, NVCC_FLAGS), with their SASS opcode counts
      (cuobjdump), are timed in turns, median of 6 timings of 10 launches
      (4 at 512^2), on the canonical first segment (65,536 rays x 631
      steps) at 256^2 and 512^2 rays, and on a uniform 2^3 cube whose 8
@@ -32,7 +32,7 @@ pass/fail checks of chip_smoke.py.
      50 model's 128^3 cubes, nfreq 2), for mechanism 5 and for mechanism 7
      (gyroresonance). Against the plain map: the plain map on cubes
      multiplied by (1 + 1e-7 N(0,1)), and the map through the shipped
-     build and its -fmad=false twin. For each: lit values, max rel T_b,
+     build (-fmad=false) and the FMA build. For each: lit values, max rel T_b,
      max and 99th percentile of |dV/I| and the count above 1e-4.
   5. s_mode: the shipped build's canonical first segment with cumulative
      and with per-step S, timed in turns (median of 6 timings of 10
@@ -56,7 +56,6 @@ CUDA device it exits 1.
 from __future__ import annotations
 
 import collections
-import contextlib
 import json
 import re
 import subprocess
@@ -69,50 +68,21 @@ import numpy as np
 import torch
 
 import chip_smoke
-from chip_smoke import (SLICE, canonical_scene, compare_records, cuda_ms,
+from chip_smoke import (DV_BAR_GR, SLICE, build_all, canonical_scene,
+                        compare_records, cuda_ms, kernel_library, map_diff,
                         plain_segments, say, segment_bound_ms, smi_line)
 
 STAGES = ("wall", "resample", "trace", "transfer", "finish")
 PHASES = ("spread", "profile", "cache", "floor", "s_mode", "sweep",
           "mesh")
-# phase cache: flags added to NVCC_FLAGS for each build; "shipped" adds
-# none, and "shipped_nofma" is EXACT_NVCC_FLAGS
+# phase cache: flags added to FMA_NVCC_FLAGS for each build; "fma" adds
+# none, and "shipped" is NVCC_FLAGS (-fmad=false)
 CACHE_VARIANTS = {
     "uncached": ("-DRGRFF_CACHE_OFF",),
     "uncached_nofma": ("-DRGRFF_CACHE_OFF", "-fmad=false"),
-    "shipped": (),
-    "shipped_nofma": ("-fmad=false",),
+    "fma": (),
+    "shipped": ("-fmad=false",),
 }
-
-
-@contextlib.contextmanager
-def kernel_library(lib):
-    """Make the trace_segment wrapper launch from `lib`."""
-    from raytracinggrff_tpu_torch.ops import trace_segment as ts
-    saved = ts._library
-    ts._library = lambda: lib
-    try:
-        yield
-    finally:
-        ts._library = saved
-
-
-def build_all(flag_sets):
-    """Build every {name: nvcc flags} library at once (one nvcc each) and
-    load them; prints each build's ptxas registers and spills."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from raytracinggrff_tpu_torch.ops import trace_segment as ts
-    with ThreadPoolExecutor(len(flag_sets)) as pool:
-        built = dict(zip(flag_sets, pool.map(ts.build_library,
-                                             flag_sets.values())))
-    libs = {}
-    for name, (path, log) in built.items():
-        libs[name] = ts.load_library(path)
-        for line in log.splitlines():
-            if "Compiling" in line or "spill" in line or "registers" in line:
-                say(f"[build] {name} ptxas: {line.strip()}")
-    return libs
 
 
 def sass_mix(lib, top=16, kernel="ILb1ELb0ELi1EiE"):
@@ -138,9 +108,9 @@ def flag_sets():
     """The builds of phase cache and the shipped build's counting twin
     ("count")."""
     from raytracinggrff_tpu_torch.ops import trace_segment as ts
-    sets = {name: ts.NVCC_FLAGS + defs
+    sets = {name: ts.FMA_NVCC_FLAGS + defs
             for name, defs in CACHE_VARIANTS.items()}
-    assert sets["shipped_nofma"] == ts.EXACT_NVCC_FLAGS
+    assert sets["shipped"] == ts.NVCC_FLAGS
     sets["count"] = ts.NVCC_FLAGS + ("-DRGRFF_COUNT_CACHE",)
     return sets
 
@@ -302,18 +272,6 @@ def phase_profile(model, cfg):
         say(f"[profile] {total / 1e3:10.3f} ms x {count:6d}  {name[:90]}")
 
 
-def map_stats(tag, res, ref):
-    """How far the map `res` is from `ref`, over the values lit in both."""
-    a, b = ref["emission_cube"], res["emission_cube"]
-    lit = (a > 1e4) & (b > 1e4)
-    rel = np.abs(b[lit] - a[lit]) / a[lit]
-    dv = np.abs(res["emission_polVI_cube"][lit]
-                - ref["emission_polVI_cube"][lit])
-    say(f"[floor] {tag}: {lit.sum()} lit values; max rel T_b "
-        f"{rel.max():.3g}; |dV/I| max {dv.max():.3g}, p99 "
-        f"{np.percentile(dv, 99):.3g}, {(dv > 1e-4).sum()} above 1e-4")
-
-
 def jittered(cubes, seed=0):
     """Each cube multiplied by (1 + 1e-7 N(0,1)), drawn in float64."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -348,12 +306,12 @@ def phase_floor(libs):
                                             verbose=False, device="cuda")
         with plain_segments():
             ref = run(cubes)
-            map_stats(f"mechanism {mech}, plain on jittered cubes vs plain",
-                      run(noisy), ref)
+            map_diff("floor", f"mechanism {mech}, plain on jittered cubes "
+                     f"vs plain", ref, run(noisy), DV_BAR_GR)
         for name, lib in libs.items():
             with kernel_library(lib):
-                map_stats(f"mechanism {mech}, kernel {name} vs plain",
-                          run(cubes), ref)
+                map_diff("floor", f"mechanism {mech}, kernel {name} vs "
+                         f"plain", ref, run(cubes), DV_BAR_GR)
 
 
 def ptxas_usage(log):
@@ -480,8 +438,7 @@ def main(argv=None):
             if "mesh" in phases:
                 phase_mesh(model, cfg)
         if "floor" in phases:
-            phase_floor({name: libs[name]
-                         for name in ("shipped", "shipped_nofma")})
+            phase_floor({name: libs[name] for name in ("shipped", "fma")})
     say(f"nvidia-smi: {smi_line()}")
     return 0
 

@@ -1,8 +1,11 @@
 """Physical constants and unit conversions (CGS unless noted).
 
-The same numbers as raytracinggrff_tpu/constants.py; a test holds the two
-copies equal. The copy exists because importing the JAX package imports jax.
+The same numbers and conversions as raytracinggrff_tpu/constants.py; a test
+holds the two copies equal. The copy exists because importing the JAX
+package imports jax.
 """
+
+import numpy as np
 
 # --- Solar / geometric ---
 R_SUN_CM = 6.957e10          # solar radius, cm
@@ -52,3 +55,14 @@ MAS_UNITS = {
 FILL_NE = 0.0
 FILL_TE = 1e4
 FILL_B = 0.0
+
+
+def freq_to_omega(freq_hz):
+    """Angular frequency [rad/s] from frequency [Hz] (numpy in and out)."""
+    return 2.0 * np.pi * freq_hz
+
+
+def ne_to_omega_pe(ne_cm3):
+    """Plasma angular frequency [rad/s] from electron density [cm^-3]
+    (numpy in and out)."""
+    return FPE_COEF * np.sqrt(ne_cm3) * 2.0 * np.pi

@@ -18,10 +18,12 @@ from pathlib import Path
 import numpy as np
 from numpy.ctypeslib import ndpointer
 
-NATIVE_SRC = Path(__file__).resolve().parents[2] / "native" / \
-    "grff_transfer.cpp"
+NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
+NATIVE_SRC = NATIVE_DIR / "grff_transfer.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 LIB_NAME = "GRFF_DEM_Transfer.so"
+# the default build; the JAX package's LIB_PATH lies in native/ instead
+LIB_PATH = BUILD_DIR / LIB_NAME
 
 
 def build_native_lib(build_dir=BUILD_DIR, force=False) -> Path:

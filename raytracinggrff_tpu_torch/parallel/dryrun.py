@@ -28,8 +28,7 @@ import torch
 
 from ..grids import UniformGrid
 from ..ops.trace_segment import trace_segment
-from ..pipeline import (RayEmissionConfig, cubes_from_numpy,
-                        run_ray_tracing_emission)
+from ..pipeline import RayEmissionConfig, run_ray_tracing_emission
 from ..tracer_segments import iter_trace_segments
 from .launch import rank_devices, spawn
 from .mesh import make_mesh
@@ -114,9 +113,7 @@ def map_rank(devices, shape, config, cubes=None, model_path=None):
     t0 = time.perf_counter()
     res = run_ray_tracing_emission(
         model_path=model_path, config=config, verbose=False, mesh=mesh,
-        device=mesh.device, timings=timings,
-        cubes=None if cubes is None else cubes_from_numpy(cubes,
-                                                          mesh.device))
+        device=mesh.device, timings=timings, cubes=cubes)
     wall = time.perf_counter() - t0
     return {"rank": mesh.rank, "coords": (mesh.ray_index, mesh.freq_index),
             "emission_cube": res["emission_cube"],
@@ -158,8 +155,8 @@ def dryrun_multichip(n_devices, device="cuda", backend=None, verbose=True):
     starts = [central_rays(rng), limb_rays(rng)]
     dev0 = rank_devices(device, n_devices)[0]
     t0 = time.perf_counter()
-    one = run_ray_tracing_emission(cubes=cubes_from_numpy(cubes, dev0),
-                                   config=cfg, verbose=False, device=dev0)
+    one = run_ray_tracing_emission(cubes=cubes, config=cfg, verbose=False,
+                                   device=dev0)
     t1 = time.perf_counter()
     results = spawn(dryrun_rank, n_devices, device, backend,
                     args=(shape, cfg, cubes, common, starts))

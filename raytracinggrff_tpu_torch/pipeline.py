@@ -111,8 +111,11 @@ def prepare_cubes(model: MASModel, grid: UniformGrid, phi0_offset_deg=0.0,
 
 def cubes_from_numpy(cubes, device):
     """The JAX pipeline's cube dict (omega_pe/ne/te/b, optional bvec
-    triple; numpy or array-likes) as float32 tensors on `device`."""
+    triple; tensors, numpy arrays or other array-likes) as float32 tensors
+    on `device`: tensors move with .to, the rest through numpy."""
     def t(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(device, torch.float32)
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
     out = {k: t(cubes[k]) for k in ("omega_pe", "ne", "te", "b")}
     if cubes.get("bvec") is not None:
@@ -229,8 +232,11 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
                              device="cuda", timings=None, **overrides):
     """Full resample -> trace -> transfer pipeline on `device`.
 
-    Either model_path (a MAS directory) or precomputed `cubes` (a dict from
-    prepare_cubes or cubes_from_numpy) must be given. Returns the
+    Either model_path (a MAS directory) or precomputed `cubes` must be
+    given: the dict of prepare_cubes or of the JAX call (omega_pe, ne, te,
+    b and, for theta_mode='los', the bvec triple), each a tensor, a numpy
+    array or another array-like, which cubes_from_numpy brings to float32
+    tensors on `device`. Returns the
     reference's result dict: emission_cube (N, N, Nf) T_b in K,
     emission_polVI_cube, frequencies_Hz, x_coords/y_coords in meters
     (resample_with_ray_tracing.py:533-541), and "_sampled": with
@@ -284,9 +290,7 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
                               cfg.phi0_offset, verbose=verbose,
                               keep_bvec=need_bvec, device=device)
     else:
-        cubes = {k: (tuple(c.to(device, torch.float32) for c in v)
-                     if k == "bvec" else v.to(device, torch.float32))
-                 for k, v in cubes.items()}
+        cubes = cubes_from_numpy(cubes, device)
     if need_bvec and "bvec" not in cubes:
         raise ValueError(
             "theta_mode='los' needs B-vector cubes: pass cubes from "

@@ -53,7 +53,7 @@ def test_import_leaves_jax_out():
         for p in PKG.rglob("*.py") if p.name != "__init__.py")
     assert set(modules) >= {
         "raytracinggrff_tpu_torch." + m for m in (
-            "sampler", "utils.nanpatch", "utils.beam", "utils.plotting",
+            "sampler", "harness", "utils.nanpatch", "utils.beam", "utils.plotting",
             "utils.fits", "utils.obs", "utils.profiling", "grff.native",
             "grff.reference", "parallel.mesh", "parallel.launch",
             "parallel.dryrun", "cli.resample_los", "cli.synthetic_ff",
@@ -128,6 +128,59 @@ def test_constants_equal_jax():
     assert names == [n for n in dir(jconst) if n.isupper()]
     for name in names:
         assert getattr(pconst, name) == getattr(jconst, name), name
+
+
+@pytest.mark.parametrize("name,values", [
+    ("freq_to_omega", np.geomspace(30e6, 800e6, 17)),
+    ("ne_to_omega_pe", np.geomspace(1e5, 1e10, 23).reshape(23, 1)
+     * np.ones((1, 3)))])
+def test_constant_functions_equal_jax(name, values):
+    """The conversions of constants.py, numpy in and numpy out, equal to
+    the JAX package's (rtol 0)."""
+    port = getattr(pconst, name)(values)
+    ref = getattr(jconst, name)(values)
+    assert isinstance(port, np.ndarray) and port.shape == values.shape
+    np.testing.assert_array_equal(port, ref)
+    assert getattr(pconst, name)(1e8) == getattr(jconst, name)(1e8)
+
+
+# the JAX package's TPU segment loop and its packers: replaced by
+# tracer_segments.py and csrc/trace_segment.cu, not ported by design
+TPU_LOOP_MODULES = ("tracer_pallas", "ops.pallas_trace")
+
+
+def _public_top_level_names(package):
+    """{module path relative to the package: its public top-level names
+    (functions, classes and assigned names)} by ast."""
+    import ast
+    out = {}
+    for path in package.rglob("*.py"):
+        names = set()
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                names.add(node.name)
+            elif isinstance(node, ast.Assign):
+                names.update(t.id for t in node.targets
+                             if isinstance(t, ast.Name))
+            elif isinstance(node, ast.AnnAssign) and isinstance(
+                    node.target, ast.Name):
+                names.add(node.target.id)
+        mod = ".".join(path.relative_to(package).with_suffix("").parts)
+        out[mod] = {n for n in names if not n.startswith("_")}
+    return out
+
+
+def test_every_public_top_level_name_has_a_twin():
+    """Every public top-level name of every module of the JAX package is
+    defined in the port's module of the same path, apart from the TPU
+    segment loop's modules."""
+    jax_names = _public_top_level_names(ROOT / "raytracinggrff_tpu")
+    port_names = _public_top_level_names(PKG)
+    assert set(TPU_LOOP_MODULES) <= set(jax_names)
+    missing = {mod: sorted(names - port_names.get(mod, set()))
+               for mod, names in jax_names.items()
+               if mod not in TPU_LOOP_MODULES}
+    assert not {m: n for m, n in missing.items() if n}, missing
 
 
 @pytest.mark.parametrize("extent,n", [(3.0, 128), (2.5, 40), (1.0, 7)])

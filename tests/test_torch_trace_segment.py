@@ -289,18 +289,20 @@ def test_wrapper_dispatches_cpu_to_plain_and_checks_inputs():
 
 
 def test_exact_build_only_adds_fmad_false_and_no_build_loosens_ieee():
-    """The kernel has an exact build without FMA contraction
-    (EXACT_NVCC_FLAGS, -fmad=false) that rounds as the plain version's
-    separate torch ops do, and which the CUDA tests hold to the plain
-    version bit for bit. The shipped build (NVCC_FLAGS) does contract: it
-    differs from the exact build only by -fmad=false, and neither build
-    loosens IEEE division, square root or denormals."""
-    from raytracinggrff_tpu_torch.ops.trace_segment import (EXACT_NVCC_FLAGS,
-                                                            NVCC_FLAGS)
-    assert EXACT_NVCC_FLAGS == NVCC_FLAGS + ("-fmad=false",)
+    """The shipped build (NVCC_FLAGS) is the exact one: without FMA
+    contraction (-fmad=false) it rounds as the plain version's separate
+    torch ops do, and the CUDA tests hold it to the plain version bit for
+    bit. The FMA build kept for measurement (FMA_NVCC_FLAGS) differs from
+    it only by -fmad=false, and neither build loosens IEEE division,
+    square root or denormals."""
+    from raytracinggrff_tpu_torch.ops.trace_segment import (FMA_NVCC_FLAGS,
+                                                            NVCC_FLAGS,
+                                                            build_library)
+    assert NVCC_FLAGS == FMA_NVCC_FLAGS + ("-fmad=false",)
+    assert build_library.__defaults__ == (NVCC_FLAGS,)
     loose = {"--use_fast_math", "-use_fast_math", "-ftz=true",
              "-prec-div=false", "-prec-sqrt=false", "-fmad=true"}
-    assert not loose & set(EXACT_NVCC_FLAGS)
+    assert not loose & (set(NVCC_FLAGS) | set(FMA_NVCC_FLAGS))
 
 
 @pytest.mark.parametrize("n,channels,wide", [
