@@ -12,7 +12,8 @@ low-band LOS vs ray-tracing comparison, per-step cross-sections, three
 maps of the TbSpectra sweep, the other device CLIs at the defaults of
 their CLIs, the production map over multi-device meshes (spawned and from torchrun), a
 map against the float64 transfer reference, the FMA build against the
-shipped exact build over whole traces and maps, and the benchmark harness.
+shipped exact build over whole traces and maps, the benchmark harness, and
+a MAS time series stepped through MASModel.at_time.
 Phases:
   1. versions, card, kernel build: the shipped library (-fmad=false) and
      the FMA build (FMA_NVCC_FLAGS, for phase 14), one nvcc each, started
@@ -65,6 +66,13 @@ Phases:
      shipped flags must hold -fmad=false
  15. the benchmark harness (bench_torch.py) at the canonical size, trace
      and pipeline mode, --repeat 3: its two JSON lines, 32 launches each
+ 16. a MAS time series: one directory with two timesteps (the second
+     unmodulated, so ne differs), n_timesteps 2 for each variable; per
+     step, prepare_cubes(model.at_time(i)) at 128^3 and the production
+     map on those cubes, with its stage times, equal to the
+     model_path=..., timestep=i map exactly, on-disk T_b in 1e4..3e6 K;
+     the two maps differ by more than 1e-3 relative on-disk T_b; step
+     1's cubes kernel vs plain at n_pix 32 under DV_BAR_FIXED
 Each path that traces rays runs with the launch count set to 0 just
 before it and checks it against its segment count just after.
 The last lines are one JSON object per kernel, the card's name and power
@@ -1200,6 +1208,85 @@ def phase_harness():
     return out
 
 
+def phase_series(tmp, device="cuda", **overrides):
+    """Phase 16: a MAS time series through MASModel.at_time. One directory
+    holds two timesteps, the second unmodulated, so that ne differs. Each
+    step's cubes (prepare_cubes(model.at_time(i))) go through the
+    production map (SLICE with `overrides`): launches = segments, stage
+    times and ray-steps/s printed, the map equal to the model_path=...,
+    timestep=i map exactly, on-disk T_b in 1e4..3e6 K. The two steps'
+    maps differ by more than 1e-3 relative on-disk T_b, and step 1's
+    cubes hold the kernel against the plain version (map_kernel_vs_plain,
+    DV_BAR_FIXED)."""
+    from raytracinggrff_tpu_torch.grids import UniformGrid
+    from raytracinggrff_tpu_torch.mas.model import (MASModel,
+                                                    synthetic_mas_model)
+    from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
+    from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
+                                                   prepare_cubes,
+                                                   run_ray_tracing_emission)
+    path = synthetic_mas_model(Path(tmp) / "corona_series", timestep=1)
+    synthetic_mas_model(path, timestep=2, modulated=False)
+    model = MASModel(path)
+    counts = {v: model.n_timesteps(v) for v in ("rho", "t", "br", "bt", "bp")}
+    say(f"[16] timesteps per variable: {counts}")
+    assert set(counts.values()) == {2}, counts
+    cfg = RayEmissionConfig(**dict(SLICE, **overrides))
+    grid = UniformGrid.cube(cfg.grid_extent, cfg.grid_n)
+    disk = disk_mask(cfg.n_pix, cfg.x_fov)[:, :, None].repeat(cfg.nfreq, 2)
+    n_seg = n_segments(cfg)
+    steps = steps_run(cfg.n_steps, cfg.record_stride)
+    maps, out = [], []
+    for i in (0, 1):
+        t0 = time.perf_counter()
+        cubes = prepare_cubes(model.at_time(i), grid, cfg.phi0_offset,
+                              verbose=False, device=device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        resample = time.perf_counter() - t0
+        npz = Path(tmp) / f"series_{i}.npz"
+        timings = {}
+        trace_segment.launches = 0
+        t0 = time.perf_counter()
+        res = run_ray_tracing_emission(cubes=cubes, config=cfg, out_path=npz,
+                                       verbose=False, device=device,
+                                       timings=timings)
+        wall = time.perf_counter() - t0
+        launches = trace_segment.launches
+        assert launches == n_seg == timings["segments"], (launches, n_seg)
+        rate = cfg.n_pix ** 2 * steps / timings["trace"]
+        say(f"[16] step {i}: prepare_cubes(at_time({i})) {resample:.4f} s; "
+            f"map wall {wall:.3f} s, trace {timings['trace']:.4f} s "
+            f"({rate:.4g} ray-steps/s over {steps} steps), transfer "
+            f"{timings['transfer']:.4f} s, finish {timings['finish']:.4f} s;"
+            f" kernel launches {launches} = segments {n_seg}")
+        trace_segment.launches = 0
+        direct = run_ray_tracing_emission(model_path=path, timestep=i,
+                                          config=cfg, verbose=False,
+                                          device=device)
+        assert trace_segment.launches == n_seg, trace_segment.launches
+        d_tb = float(np.max(np.abs(res["emission_cube"]
+                                   - direct["emission_cube"])))
+        d_vi = float(np.max(np.abs(res["emission_polVI_cube"]
+                                   - direct["emission_polVI_cube"])))
+        say(f"[16] step {i}: vs run_ray_tracing_emission(model_path=..., "
+            f"timestep={i}): max |dT_b| {d_tb:.3g} K, max |dV/I| "
+            f"{d_vi:.3g}")
+        assert d_tb == 0.0 and d_vi == 0.0, (d_tb, d_vi)
+        tb = np.load(npz)["emission_cube"]
+        check_disk_tb("16", tb, disk)
+        maps.append(tb)
+        out.append({"resample": resample, "wall": wall, "timings": timings,
+                    "rate": rate})
+    rel = np.abs(maps[1][disk] - maps[0][disk]) / maps[0][disk]
+    say(f"[16] step 1 vs step 0 over {rel.size} on-disk values: max rel "
+        f"T_b difference {rel.max():.4g}, median {np.median(rel):.4g}")
+    assert rel.max() > 1e-3, rel.max()
+    map_kernel_vs_plain("16", cubes, DV_BAR_FIXED, device=device,
+                        grid_n=cfg.grid_n)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1229,6 +1316,8 @@ def main():
             phase_float64(tmp)
             phase_fma(tmp, fma_lib)
         phase_harness()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_series(tmp)
     say(f"total {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": [{
         "name": "trace_segment", "route": "cuda", "source": KERNEL_SOURCE,

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 def check_uniform_grid(grid, name: str = "grid") -> tuple[float, float]:
@@ -75,6 +76,12 @@ class UniformGrid:
         ys = self.y0 + self.dy * np.arange(self.ny)
         zs = self.z0 + self.dz * np.arange(self.nz)
         return xs, ys, zs
+
+    def meshgrid(self, dtype=torch.float32, device="cuda"):
+        """The cube's (x, y, z) coordinate tensors, each (nx, ny, nz) with
+        'ij' indexing, as `dtype` on `device`."""
+        return torch.meshgrid(*(torch.as_tensor(a, dtype=dtype, device=device)
+                                for a in self.axes()), indexing="ij")
 
 
 def variable_z_grid(n_z: int, dz0: float) -> tuple[np.ndarray, np.ndarray]:

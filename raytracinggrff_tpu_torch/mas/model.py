@@ -83,9 +83,9 @@ class MASVariable:
         data = np.transpose(data, (ip, it, ir))
         return cls(name, data, scales[ip], scales[it], scales[ir])
 
-    def device_arrays(self, device):
-        """(data, phi, theta, r) as float32 tensors on `device`."""
-        return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
+    def device_arrays(self, device, dtype=torch.float32):
+        """(data, phi, theta, r) as `dtype` tensors on `device`."""
+        return tuple(torch.as_tensor(a, dtype=dtype, device=device)
                      for a in (self.data, self.phi, self.theta, self.r))
 
     def sample_sph(self, r_q, colat_q, phi_q, device="cuda"):
@@ -152,8 +152,13 @@ def _interp_sph(data, phi, theta, r, r_q, colat_q, phi_q):
 
 
 class MASModel:
-    """MAS model directory with lazy per-variable loading. `timestep`
-    selects which {var}NNN file each variable loads (default: first)."""
+    """MAS model directory with lazy per-variable loading
+    (load_mas_var_filtered, build_rays.py:48-66). The reference
+    concatenates a multi-timestep directory along a time axis and then
+    samples one step; here time is an explicit index instead: `timestep`
+    selects which {var}NNN file each variable loads (default: first),
+    `n_timesteps` counts them, and `at_time(i)` gives a view of the same
+    directory at another step, to iterate a time series."""
 
     def __init__(self, path, timestep=0):
         self.path = Path(path)
@@ -174,6 +179,14 @@ class MASModel:
     def files_for(self, var_name):
         pattern = re.compile(rf"^{var_name}\d{{3}}\.(hdf|h5|hdf5)$")
         return sorted(f for f in self.path.iterdir() if pattern.match(f.name))
+
+    def n_timesteps(self, var_name) -> int:
+        return len(self.files_for(var_name))
+
+    def at_time(self, timestep) -> "MASModel":
+        """View of the same directory at another timestep (lazy, own
+        cache)."""
+        return MASModel(self.path, timestep=timestep)
 
     def __getitem__(self, var_name) -> MASVariable:
         key = (var_name, self.timestep)

@@ -120,3 +120,47 @@ def test_prepare_cubes_matches_jax(models):
     for a, b in zip(out["bvec"], ref["bvec"]):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
                                    atol=1e-6 * float(np.abs(b).max()))
+
+
+def test_multi_timestep_selection_matches_jax(tmp_path):
+    """A two-timestep directory (tests/test_mas.py:132-150; the second
+    step unmodulated and with twice the field, so that rho and B differ
+    between the steps) read through both packages: n_timesteps,
+    at_time(1)'s five variables array for array, IndexError past the last
+    step, and prepare_cubes(at_time(1)) at the tolerance of
+    test_prepare_cubes_matches_jax."""
+    small = dict(nphi=16, ntheta=13, nr=24)
+    path = pmodel.synthetic_mas_model(tmp_path / "series", timestep=1,
+                                      **small)
+    pmodel.synthetic_mas_model(path, timestep=2, modulated=False,
+                               b0_gauss=5.0, **small)
+    jm, pm = jmodel.MASModel(path), pmodel.MASModel(path)
+    names = ("rho", "t", "br", "bt", "bp")
+    for v in names:
+        assert pm.n_timesteps(v) == jm.n_timesteps(v) == 2
+    pm1, jm1 = pm.at_time(1), jm.at_time(1)
+    assert isinstance(pm1, pmodel.MASModel) and pm1.timestep == 1
+    assert pm.timestep == 0 and pm1.path == pm.path
+    for v in names:
+        for attr in ("data", "phi", "theta", "r"):
+            np.testing.assert_array_equal(getattr(pm1[v], attr),
+                                          getattr(jm1[v], attr))
+    assert not np.array_equal(pm1["rho"].data, pm["rho"].data)
+    np.testing.assert_allclose(np.abs(pm1["br"].data).max(),
+                               2.0 * np.abs(pm["br"].data).max(), rtol=1e-6)
+    for model in (pm.at_time(2), jm.at_time(2)):
+        with pytest.raises(IndexError):
+            model["rho"]
+    data, phi, _, _ = pm1["t"].device_arrays("cpu", dtype=torch.float64)
+    assert data.dtype == phi.dtype == torch.float64
+    np.testing.assert_array_equal(data.numpy(), pm1["t"].data)
+
+    ref = jax_prepare(jm1, JaxGrid.cube(2.5, 21), 10.0, verbose=False)
+    out = prepare_cubes(pm1, UniformGrid.cube(2.5, 21), 10.0, verbose=False,
+                        device="cpu")
+    for key in ("omega_pe", "ne", "te", "b"):
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]),
+                                   rtol=1e-5, atol=1e-30)
+    first = prepare_cubes(pm, UniformGrid.cube(2.5, 21), 10.0,
+                          verbose=False, device="cpu")
+    assert not torch.equal(first["ne"], out["ne"])

@@ -94,9 +94,12 @@ def test_card_script_imports_no_jax_and_needs_cuda(script):
                                   "cli.plot_model_slices.sample_plane",
                                   "tracer.trace_rays_from_cube",
                                   "parallel.launch.spawn",
-                                  "parallel.dryrun.dryrun_multichip"])
+                                  "parallel.dryrun.dryrun_multichip",
+                                  "grids.UniformGrid.meshgrid"])
 def test_entry_points_default_to_cuda(name):
-    if "." in name:
+    if name.startswith("grids.UniformGrid."):
+        module, name = UniformGrid, name.rsplit(".", 1)[1]
+    elif "." in name:
         mod, name = name.rsplit(".", 1)
         module = importlib.import_module(f"raytracinggrff_tpu_torch.{mod}")
     else:
@@ -181,6 +184,112 @@ def test_every_public_top_level_name_has_a_twin():
                for mod, names in jax_names.items()
                if mod not in TPU_LOOP_MODULES}
     assert not {m: n for m, n in missing.items() if n}, missing
+
+
+def _signature_names(fn):
+    """Parameter names of an ast function node, self and cls left out."""
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    names += [x.arg for x in (a.vararg, a.kwarg) if x is not None]
+    return {n for n in names if n not in ("self", "cls")}
+
+
+def _public_members(package):
+    """{(module path, name): the names under it} by ast, for every public
+    top-level function (its parameter names), every public class (its
+    methods, properties and class attributes, dunder methods included)
+    and each of those methods (its parameter names)."""
+    import ast
+    out = {}
+    for path in package.rglob("*.py"):
+        mod = ".".join(path.relative_to(package).with_suffix("").parts)
+        for node in ast.parse(path.read_text()).body:
+            if not isinstance(node, (ast.FunctionDef, ast.ClassDef)) or \
+                    node.name.startswith("_"):
+                continue
+            if isinstance(node, ast.FunctionDef):
+                out[mod, node.name] = _signature_names(node)
+                continue
+            members = set()
+            for item in node.body:
+                if isinstance(item, ast.FunctionDef):
+                    name = item.name
+                    if name.startswith("_") and not name.endswith("__"):
+                        continue
+                    members.add(name)
+                    out[mod, f"{node.name}.{name}"] = _signature_names(item)
+                elif isinstance(item, ast.Assign):
+                    members.update(t.id for t in item.targets
+                                   if isinstance(t, ast.Name))
+                elif isinstance(item, ast.AnnAssign) and isinstance(
+                        item.target, ast.Name):
+                    members.add(item.target.id)
+            out[mod, node.name] = {m for m in members
+                                   if not m.startswith("_")
+                                   or m.endswith("__")}
+    return out
+
+
+# The JAX package's array-module switch (xp=jnp or numpy): the port's
+# versions take torch tensors, or numpy where they run on the host.
+XP_SWITCH = {
+    "coords": ("cart_to_sph", "sph_to_cart", "image_xyz_to_mas_sph"),
+    "grff.physics": ("coulomb_log", "refractive_index_sq",
+                     "saha_neutral_hydrogen", "gyro_polarization_coupling",
+                     "gyroresonance_kappa", "trapezoid_weights",
+                     "dem_freefree_moments", "exact_gaunt",
+                     "neutral_hydrogen_kappa", "freefree_kappa"),
+    "grff.transfer": ("log_spaced_freqs",),
+}
+# Every member or parameter of the JAX package that the port leaves out on
+# purpose: {(module path, name): (the names left out, why)}.
+MEMBER_DEPARTURES = {
+    **{(mod, fn): ({"xp"}, "the array-module switch; the port runs torch")
+       for mod, fns in XP_SWITCH.items() for fn in fns},
+    ("pipeline", "RayEmissionConfig"): (
+        set(TPU_ONLY_FIELDS),
+        "tiling and debugging knobs of the TPU kernel (TPU_ONLY_FIELDS)"),
+}
+
+
+def test_every_public_member_and_parameter_has_a_twin():
+    """Every public class of the JAX package (outside the TPU segment
+    loop) has each of its methods, properties and class attributes on the
+    port's class of the same name, and every public function and method
+    has each of its parameter names in its port twin, apart from
+    MEMBER_DEPARTURES. The check runs from the JAX package to the port, so
+    the port's added parameters (device) need no entry; a departure that no
+    longer names a gap fails too."""
+    jax_members = _public_members(ROOT / "raytracinggrff_tpu")
+    port_members = _public_members(PKG)
+    gaps = {}
+    for (mod, name), names in jax_members.items():
+        if mod in TPU_LOOP_MODULES:
+            continue
+        if (mod, name) not in port_members:
+            # a missing method is a gap of its class
+            if "." not in name:
+                gaps[mod, name] = {"(no twin)"}
+            continue
+        missing = names - port_members[mod, name]
+        if missing:
+            gaps[mod, name] = missing
+    assert len(jax_members) > 100
+    assert gaps == {k: v[0] for k, v in MEMBER_DEPARTURES.items()}, gaps
+
+
+@pytest.mark.parametrize("extent,n", [(2.5, 40), (1.0, 7)])
+def test_grid_meshgrid_equals_jax(extent, n):
+    """UniformGrid.meshgrid on the CPU: the JAX package's 'ij' coordinate
+    arrays exactly."""
+    port = UniformGrid.cube(extent, n).meshgrid(device="cpu")
+    ref = JaxGrid.cube(extent, n).meshgrid()
+    assert len(port) == len(ref) == 3
+    for a, b in zip(port, ref):
+        assert a.dtype == torch.float32 and a.shape == (n, n, n)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert UniformGrid.cube(extent, n).meshgrid(
+        torch.float64, device="cpu")[0].dtype == torch.float64
 
 
 @pytest.mark.parametrize("extent,n", [(3.0, 128), (2.5, 40), (1.0, 7)])

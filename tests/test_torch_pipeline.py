@@ -451,3 +451,43 @@ def test_angle_less_records_match_masked_jax(cubes, tmp_path, monkeypatch):
             np.asarray(getattr(center, name))[usable, 0],
             np.asarray(getattr(ref_los, name))[usable, p],
             **{"rtol": 1e-4, **tol}, err_msg=name)
+
+
+def test_time_series_map_matches_jax_xla(tmp_path):
+    """A MAS time series through the port: at_time(1)'s cubes
+    (prepare_cubes) into the map (8^2 pixels, 900 steps, S input on, on
+    the CPU), against the JAX XLA pipeline's map of the same directory at
+    timestep=1 under the bar of _assert_maps_agree. The port's
+    model_path=..., timestep=1 call gives the same map exactly, and step
+    0's map differs from step 1's on the disk."""
+    from raytracinggrff_tpu_torch.grids import UniformGrid
+    from raytracinggrff_tpu_torch.mas.model import MASModel
+    from raytracinggrff_tpu_torch.pipeline import prepare_cubes
+    small = dict(nphi=36, ntheta=25, nr=40)
+    path = synthetic_mas_model(tmp_path / "series", timestep=1, **small)
+    synthetic_mas_model(path, timestep=2, modulated=False, **small)
+    common = dict(n_pix=8, x_fov=1.44, freq_hz=150e6, grid_n=48,
+                  grid_extent=2.5, z_observer=2.5, dt=1e-2, n_steps=900,
+                  record_stride=10, s_input_on=True, nfreq=2,
+                  freq_log_step=0.1)
+    ref = jax_run(model_path=path, timestep=1, verbose=False,
+                  config=JaxConfig(tracer_backend="xla", **common))
+    cfg = RayEmissionConfig(**common)
+    model = MASModel(path)
+    assert model.n_timesteps("rho") == 2
+    maps = []
+    for step in (0, 1):
+        cubes = prepare_cubes(model.at_time(step), UniformGrid.cube(2.5, 48),
+                              cfg.phi0_offset, verbose=False, device="cpu")
+        maps.append(run_ray_tracing_emission(cubes=cubes, config=cfg,
+                                             verbose=False, device="cpu"))
+    _assert_maps_agree(maps[1], ref, min_lit=40)
+    direct = run_ray_tracing_emission(model_path=path, timestep=1,
+                                      config=cfg, verbose=False,
+                                      device="cpu")
+    for key in ("emission_cube", "emission_polVI_cube"):
+        np.testing.assert_array_equal(maps[1][key], direct[key])
+    xs = np.linspace(-1.44, 1.44, 8)
+    disk = (xs[None, :] ** 2 + xs[:, None] ** 2) < 1.0
+    a, b = maps[0]["emission_cube"][disk], maps[1]["emission_cube"][disk]
+    assert np.all(b > 1e4) and np.max(np.abs(a / b - 1)) > 1e-3
