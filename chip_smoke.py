@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Builds the trace-segment kernel from raytracinggrff_tpu_torch/csrc, holds
-it against its plain PyTorch version on the card, drives the production
+Builds the kernel library from raytracinggrff_tpu_torch/csrc (the trace
+segment and the two transfer folds), holds the trace kernel against its
+plain PyTorch version on the card, drives the production
 emission map (256^2 rays x 5000 steps x 128^3 cube at 75 MHz, nfreq 3,
 cross-sections and S input on) through run_ray_tracing_emission, and checks
 the map; then drives the straight-LOS chain, the gyroresonance map, the
@@ -12,8 +13,9 @@ low-band LOS vs ray-tracing comparison, per-step cross-sections, three
 maps of the TbSpectra sweep, the other device CLIs at the defaults of
 their CLIs, the production map over multi-device meshes (spawned and from torchrun), a
 map against the float64 transfer reference, the FMA build against the
-shipped exact build over whole traces and maps, the benchmark harness, and
-a MAS time series stepped through MASModel.at_time.
+shipped exact build over whole traces and maps, the benchmark harness,
+a MAS time series stepped through MASModel.at_time, and the transfer folds
+against their plain versions, alone and inside whole maps.
 Phases:
   1. versions, card, kernel build: the shipped library (-fmad=false) and
      the FMA build (FMA_NVCC_FLAGS, for phase 14), one nvcc each, started
@@ -73,9 +75,24 @@ Phases:
      model_path=..., timestep=i map exactly, on-disk T_b in 1e4..3e6 K;
      the two maps differ by more than 1e-3 relative on-disk T_b; step
      1's cubes kernel vs plain at n_pix 32 under DV_BAR_FIXED
-Each path that traces rays runs with the launch count set to 0 just
-before it and checks it against its segment count just after.
-The last lines are one JSON object per kernel, the card's name and power
+ 17. the transfer folds (csrc/transfer_fold.cu): (a) the record fold on
+     the canonical scene's first segment (65,536 rays x 64 records, nfreq
+     3, S input on, B 5-20 G) through the kernel and the plain version,
+     mechanisms 5 and 7 at a fixed theta and with theta_mode 'los': flux
+     max rel 1e-4 over entries above 1e-30 and the evanescent (tau = inf)
+     sets equal on >= 99.9% of (ray, frequency) entries, with each fold's
+     time, its plain time and its bound; (b) the production map and the
+     gyroresonance map of phase 7 with their transfer through the kernel
+     and through the plain fold: rel T_b 5e-3 and DV_BAR_FIXED, or
+     DV_BAR_GR; (c) the LOS chain's synthetic_ff (phase 6's size) through
+     the voxel fold and the plain one under DV_BAR_FIXED, and its fold
+     alone timed both ways with its bound
+Each path that traces rays runs with the launch counts set to 0 just
+before it and checks them against its segment count just after: the
+trace kernel's and the record fold's, one launch each a segment; a LOS
+chain's synthetic_ff launches the voxel fold once.
+The last lines are one JSON object listing the kernels, the card's name
+and power
 limit, and {"ok": true, "device": {...}}. Any failure is a traceback and a
 nonzero exit; without a CUDA device it exits 1 and prints no result.
 """
@@ -99,6 +116,10 @@ from raytracinggrff_tpu_torch.harness import (make_cube, make_rays, smi_line,
 
 KERNEL_SOURCE = "raytracinggrff_tpu_torch/csrc/trace_segment.cu"
 KERNEL_REPLACES = "raytracinggrff_tpu/ops/pallas_trace.py:654"
+FOLD_SOURCE = "raytracinggrff_tpu_torch/csrc/transfer_fold.cu"
+# the JAX scans the folds replace: stream_seg and _grff_transfer_jit
+FOLD_REPLACES = {"records": "raytracinggrff_tpu/pipeline.py:377",
+                 "voxels": "raytracinggrff_tpu/grff/transfer.py:231"}
 # record-row tolerances (atol, rtol) of tests/test_pallas_trace.py:52-65
 ROW_TOL = [(2e-4, 2e-4)] * 3 + [(5e-4, 5e-3), (1e-2, 1e-3), (1.0, 1e-3),
                                 (1e-3, 1e-3), (1e-4, 0.0)]
@@ -122,6 +143,35 @@ PEAK_BYTES_S = 3.35e12
 # + 19 for cos theta with 8 channels.
 FLOPS_PER_STEP = 1702
 FLOPS_PER_RECORD = {4: 101, 8: 211}
+# float32 operations of a valid voxel of csrc/transfer_fold.cu's function,
+# counted the same way, with exp, log, pow, sqrt, sin, cos and acos one
+# each (negations, selects, clamps and compares not counted), each term
+# where it first depends on its inputs: once a record, once a voxel for the
+# terms that no frequency enters, once a (voxel, frequency) for the terms
+# that no mode enters, and the rest once a mode; a subexpression that
+# recurs is counted once. Once a record: ds from the last valid position
+# 10, S x area 1 (s_on), acos/sin/cos 3 (theta per record); once a voxel
+# with a per-voxel theta: sin and cos 2. Then (once a voxel, once a
+# (voxel, frequency)):
+#   common (5, 45): area, nu_p^2, nu_B, T x area, nu_B |cos theta|; X, Y,
+#     the source 1, n^2 14 + 4 a mode, and a mode n_sigma 1, eff_nu^2 2,
+#     tau 1 and the carry step 6
+#   free-free (8, 9 Dulk or 10 exact): ln T, the two Coulomb-log branches
+#     but their ln nu 3, coef ne^2 2, T^1.5 2; ln nu twice, the Gaunt
+#     scale (exact), x lnLambda, and 3 a mode
+#   neutrals (13, 10): the Saha density and collision rate; 5 a mode
+#   gyroresonance (11, 64): nu_B', beta^2, beta, the log argument 4,
+#     pref x nu_p^2, (cos sin theta)^2 2; Y', pref / nu, the polarization
+#     coupling's second n^2 11 + 4 a mode, its Stix terms 7 and 15 a mode,
+#     and 3 a mode
+#   each harmonic (13, 7): s nu_B, the width 2, the log term 5 and its exp,
+#     s nu_B exp, 2 w^2 2, sqrt(2 pi) w; nu - s nu_B, the Gaussian 5, the
+#     sum 1
+FOLD_FLOPS_RECORD = 10
+FOLD_FLOPS_COMMON = (5, 45)
+FOLD_FLOPS_FF = {"dulk": (8, 9), "exact": (8, 10)}
+FOLD_FLOPS_NEUTRALS = (13, 10)
+FOLD_FLOPS_GR, FOLD_FLOPS_HARMONIC = (11, 64), (13, 7)
 SLICE = dict(n_pix=256, x_fov=1.44, freq_hz=75e6, grid_n=128,
              grid_extent=3.0, z_observer=3.0, dt=6e-3, n_steps=5000,
              record_stride=10, nfreq=3, freq0=75e6, freq_log_step=0.05,
@@ -202,15 +252,15 @@ def canonical_scene(n_pix=256):
 
 @contextlib.contextmanager
 def kernel_library(lib):
-    """Make the trace_segment wrapper launch from `lib` (a library of
-    ops/trace_segment.load_library) while the block runs."""
-    from raytracinggrff_tpu_torch.ops import trace_segment as ts
-    saved = ts._library
-    ts._library = lambda: lib
+    """Make every kernel wrapper launch from `lib` (a library of
+    ops/_build.load_library) while the block runs."""
+    from raytracinggrff_tpu_torch.ops import _build
+    saved = _build.library
+    _build.library = lambda: lib
     try:
         yield
     finally:
-        ts._library = saved
+        _build.library = saved
 
 
 @contextlib.contextmanager
@@ -225,6 +275,39 @@ def plain_segments():
         yield
     finally:
         tracer_segments.trace_segment = saved
+
+
+@contextlib.contextmanager
+def plain_folds():
+    """Route the record and voxel folds through their plain versions on
+    CUDA tensors for a comparison run; the wrappers themselves never do."""
+    from raytracinggrff_tpu_torch.ops import transfer_fold as tf
+    saved = tf.fold_records, tf.fold_voxels
+    tf.fold_records = tf.fold_records_plain
+    tf.fold_voxels = tf.fold_voxels_plain
+    try:
+        yield
+    finally:
+        tf.fold_records, tf.fold_voxels = saved
+
+
+def reset_counts():
+    """Set the launch counts of the trace kernel and both folds to 0."""
+    from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
+    from raytracinggrff_tpu_torch.ops.transfer_fold import LAUNCHES
+    trace_segment.launches = 0
+    LAUNCHES.update(records=0, voxels=0)
+
+
+def check_folds(tag, kind, n, device="cuda"):
+    """The launches of fold_`kind` ('records' or 'voxels') since
+    reset_counts equal n on a card; the CPU runs the plain folds, which
+    count none. Returns the count."""
+    from raytracinggrff_tpu_torch.ops.transfer_fold import LAUNCHES
+    got = LAUNCHES[kind]
+    want = n if torch.device(device).type == "cuda" else 0
+    assert got == want, (tag, kind, got, want)
+    return got
 
 
 @contextlib.contextmanager
@@ -276,13 +359,13 @@ def build_all(flag_sets):
     load them; prints each build's ptxas registers and spills."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from raytracinggrff_tpu_torch.ops import trace_segment as ts
+    from raytracinggrff_tpu_torch.ops import _build
     with ThreadPoolExecutor(len(flag_sets)) as pool:
-        built = dict(zip(flag_sets, pool.map(ts.build_library,
+        built = dict(zip(flag_sets, pool.map(_build.build_library,
                                              flag_sets.values())))
     libs = {}
     for name, (path, log) in built.items():
-        libs[name] = ts.load_library(path)
+        libs[name] = _build.load_library(path)
         for line in log.splitlines():
             if "Compiling" in line or "spill" in line or "registers" in line:
                 say(f"[build] {name} ptxas: {line.strip()}")
@@ -293,16 +376,17 @@ def phase_build():
     """Build the shipped library (NVCC_FLAGS) and the FMA build
     (FMA_NVCC_FLAGS, measured in phase 14) at once; returns the FMA
     library."""
-    from raytracinggrff_tpu_torch.ops import trace_segment as ts
+    from raytracinggrff_tpu_torch.ops import _build
     say(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
     say(f"nvidia-smi: {smi_line()}")
     t0 = time.perf_counter()
-    libs = build_all({"shipped": ts.NVCC_FLAGS, "fma": ts.FMA_NVCC_FLAGS})
-    ts._library()
+    libs = build_all({"shipped": _build.NVCC_FLAGS,
+                      "fma": _build.FMA_NVCC_FLAGS})
+    _build.library()
     say(f"[1] built the shipped and the FMA library in "
         f"{time.perf_counter() - t0:.1f} s, one nvcc each at once (nvcc "
-        f"{' '.join(ts.NVCC_FLAGS)}; the FMA build drops -fmad=false)")
+        f"{' '.join(_build.NVCC_FLAGS)}; the FMA build drops -fmad=false)")
     return libs["fma"]
 
 
@@ -357,6 +441,14 @@ def phase_small(out, tag="2", s_mode="cumulative"):
     out["max_abs_err"] = worst_r
 
 
+def bound(ops, nbytes):
+    """(ms, "operations" or "bytes"): the larger of ops at PEAK_F32_FLOPS
+    and nbytes at PEAK_BYTES_S."""
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def segment_bound_ms(tcube, scube, state, rec, n_first, stride):
     """Least time the card needs for one segment: the larger of its float32
     operations at PEAK_F32_FLOPS and its bytes (each cube, the state in
@@ -372,9 +464,7 @@ def segment_bound_ms(tcube, scube, state, rec, n_first, stride):
            + FLOPS_PER_RECORD[scube.shape[3]] * float(live.sum()))
     nbytes = 4 * (tcube.numel() + scube.numel() + 2 * state.numel()
                   + rec.numel())
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return bound(ops, nbytes)
 
 
 def phase_canonical(out):
@@ -411,7 +501,7 @@ def phase_main(out, tmp):
     steps = steps_run(cfg.n_steps, cfg.record_stride)
     for run in (1, 2):
         timings = {}
-        trace_segment.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         res = run_ray_tracing_emission(model_path=model, config=cfg,
                                        out_path=npz, verbose=False,
@@ -419,12 +509,14 @@ def phase_main(out, tmp):
         wall = time.perf_counter() - t0
         launches = trace_segment.launches
         assert launches == n_seg == timings["segments"], (launches, n_seg)
+        folds = check_folds("4", "records", n_seg)
         rate = 256 * 256 * steps / timings["trace"]
         say(f"[4] run {run}: wall {wall:.3f} s; resample "
             f"{timings['resample']:.4f} s, trace {timings['trace']:.4f} s "
             f"({rate:.4g} ray-steps/s over {steps} steps), transfer "
             f"{timings['transfer']:.4f} s, finish {timings['finish']:.4f} s;"
-            f" kernel launches {launches} = segments {n_seg}")
+            f" kernel launches {launches} = segments {n_seg}, record-fold "
+            f"launches {folds}")
     tb = res["emission_cube"]
     assert tb.shape == (256, 256, 3) and np.all(np.isfinite(tb)), tb.shape
     disk = np.load(npz)["emission_cube"]
@@ -437,13 +529,15 @@ def phase_main(out, tmp):
         f"1e4..3e6 K; percentiles 0/1/50/99/100: "
         f"{', '.join('%.4g' % p for p in pct)}")
     assert inside.all(), "on-disk T_b outside 1e4..3e6 K"
-    out.update(launches=launches, wall=wall, timings=timings)
+    out.update(launches=launches, fold_launches=folds, wall=wall,
+               timings=timings)
     return res
 
 
 def map_kernel_vs_plain(tag, cubes, bar, device="cuda", **overrides):
-    """The n_pix 32 x 600-step map through the kernel and through the
-    plain version on the same cubes: rel T_b <= 5e-3 (the bar of
+    """The n_pix 32 x 600-step map through the kernels (trace and record
+    fold) and through their plain versions on the same cubes: rel T_b <=
+    5e-3 (the bar of
     tests/test_streamed_pipeline.py) and |dV/I| within `bar`, one of
     DV_BAR_FIXED and DV_BAR_GR."""
     from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
@@ -451,12 +545,13 @@ def map_kernel_vs_plain(tag, cubes, bar, device="cuda", **overrides):
     from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
     cfg = RayEmissionConfig(**dict(SLICE, n_pix=32, n_steps=600, nfreq=2,
                                    **overrides))
-    trace_segment.launches = 0
+    reset_counts()
     r_k = run_ray_tracing_emission(cubes=cubes, config=cfg, verbose=False,
                                    device=device)
     launches = trace_segment.launches
     assert launches == n_segments(cfg), (launches, n_segments(cfg))
-    with plain_segments():
+    check_folds(tag, "records", n_segments(cfg), device)
+    with plain_segments(), plain_folds():
         r_p = run_ray_tracing_emission(cubes=cubes, config=cfg,
                                        verbose=False, device=device)
     hold_maps(tag, f"map kernel vs plain ({cfg.s_mode} S, {launches} "
@@ -559,7 +654,8 @@ def check_disk_tb(tag, tb, disk):
 
 def phase_los(tmp, n_pix=128, device="cuda"):
     """The straight-LOS chain at the defaults of cli/resample_los.py and
-    cli/synthetic_ff.py (no rays are traced, so no kernel launches)."""
+    cli/synthetic_ff.py: no rays are traced, and synthetic_ff launches the
+    voxel fold once. Returns its stage times, the LOS data and the map."""
     from raytracinggrff_tpu_torch.mas.model import synthetic_mas_model
     from raytracinggrff_tpu_torch.pipeline import (resample_mas_los,
                                                    synthetic_ff)
@@ -569,15 +665,18 @@ def phase_los(tmp, n_pix=128, device="cuda"):
                            y_range=(-1.44, 1.44), n_z=400, dz0=3e-4,
                            phi0_offset=24.0, verbose=False, device=device)
     t1 = time.perf_counter()
+    reset_counts()
     em = synthetic_ff(los, 450e6, 4, 0.1, verbose=False, device=device)
     t2 = time.perf_counter()
+    folds = check_folds("6", "voxels", 1, device)
     say(f"[6] resample_mas_los {n_pix}^2 x 400 ({n_pix ** 2 * 400} samples "
         f"per variable): {t1 - t0:.3f} s; synthetic_ff 4 frequencies from "
-        f"450 MHz: {t2 - t1:.3f} s")
+        f"450 MHz: {t2 - t1:.3f} s; voxel-fold launches {folds}")
     tb = em["emission_cube"]
     assert tb.shape == (n_pix, n_pix, 4), tb.shape
     check_disk_tb("6", tb, disk_mask(n_pix, 1.44)[:, :, None].repeat(4, 2))
-    return {"resample_s": t1 - t0, "transfer_s": t2 - t1}
+    return {"resample_s": t1 - t0, "transfer_s": t2 - t1,
+            "fold_launches": folds, "los": los, "map": em}
 
 
 def phase_gyro(tmp, n_pix=256, n_steps=5000, grid_n=128, device="cuda"):
@@ -596,13 +695,14 @@ def phase_gyro(tmp, n_pix=256, n_steps=5000, grid_n=128, device="cuda"):
                   theta_mode="los")
     cfg = RayEmissionConfig(**dict(common, mechanism=7))
     timings = {}
-    trace_segment.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = run_ray_tracing_emission(model_path=model, config=cfg,
                                    verbose=False, device=device,
                                    timings=timings)
     wall = time.perf_counter() - t0
     launches = trace_segment.launches
+    check_folds("7", "records", n_segments(cfg), device)
     say(f"[7] gyroresonance map {n_pix}^2 x {n_steps} steps x {grid_n}^3: "
         f"wall {wall:.3f} s; resample {timings['resample']:.4f} s, trace "
         f"{timings['trace']:.4f} s, transfer {timings['transfer']:.4f} s, "
@@ -643,7 +743,7 @@ def phase_compare(tmp, n_pix=128, grid_n=256, freqs=(30e6, 60e6, 120e6),
         cfg = RayEmissionConfig(n_steps=p["n_steps"],
                                 record_stride=p["record_stride"])
         timings = {}
-        trace_segment.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         ray, los = compare_frequency(model, freq, n_pix=n_pix, x_fov=2.8,
                                      grid_n=grid_n, grid_extent=4.0,
@@ -655,12 +755,15 @@ def phase_compare(tmp, n_pix=128, grid_n=256, freqs=(30e6, 60e6, 120e6),
         b = los["emission_cube"][:, :, 0]
         assert np.all(np.isfinite(a)) and np.all(np.isfinite(b))
         assert launches == n_segments(cfg), (launches, n_segments(cfg))
+        check_folds("8", "records", n_segments(cfg), device)
+        check_folds("8", "voxels", 1, device)
         ratio = np.median(a[disk]) / np.median(b[disk])
         say(f"[8] {freq / 1e6:.0f} MHz ({p['n_steps']} steps, stride "
             f"{p['record_stride']}, n_z {p['n_z']}): {wall:.3f} s for both "
             f"maps; ray stages resample {timings['resample']:.4f}, trace "
             f"{timings['trace']:.4f}, transfer {timings['transfer']:.4f} s; "
-            f"kernel launches {launches} = segments {n_segments(cfg)}; "
+            f"kernel and record-fold launches {launches} = segments "
+            f"{n_segments(cfg)}, one voxel fold; "
             f"on-disk median T_b ray/LOS {ratio:.4f}")
         out[freq] = {"wall": wall, "ratio": ratio}
     return out
@@ -692,7 +795,7 @@ def phase_sweep(tmp, indices=SWEEP_INDICES, compare=SWEEP_INDICES,
     freqs = sweep_frequencies()[list(indices)]
     timings = []
     with first_segments() as firsts:
-        trace_segment.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         rows = run_sweep(model, freqs, Path(tmp) / "mfs", n_pix=n_pix,
                          phi0_offset=-140.0, device=device, timings=timings,
@@ -700,9 +803,10 @@ def phase_sweep(tmp, indices=SWEEP_INDICES, compare=SWEEP_INDICES,
         wall = time.perf_counter() - t0
         launches = trace_segment.launches
     segments = sum(t["segments"] for t in timings)
-    say(f"[10] {len(rows)} map(s): wall {wall:.3f} s; kernel launches "
-        f"{launches} = segments {segments}")
+    say(f"[10] {len(rows)} map(s): wall {wall:.3f} s; kernel and "
+        f"record-fold launches {launches} = segments {segments}")
     assert launches == segments, (launches, segments)
+    check_folds("10", "records", segments, device)
     assert len(firsts) == len(timings), (len(firsts), len(timings))
     for i, t, row in zip(indices, timings, rows):
         peak = ("not measured on the CPU" if t["peak_bytes"] is None
@@ -796,7 +900,7 @@ def phase_cli(tmp, device="cuda"):
     del omega_pe, firsts
 
     out_dir = Path(tmp) / "cmp_s"
-    trace_segment.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     say("[11] compare_s_input (100^2 pixels, 150^3, 60 MHz, 5000 steps), "
         "its statistics:")
@@ -805,8 +909,10 @@ def phase_cli(tmp, device="cuda"):
     wall = time.perf_counter() - t0
     n_seg = 2 * len(segment_plan(5000, 10, 64)[0])
     say(f"[11] compare_s_input: {wall:.3f} s; kernel launches "
-        f"{trace_segment.launches} = 2 maps x segments")
+        f"{trace_segment.launches} = record-fold launches = 2 maps x "
+        f"segments")
     assert trace_segment.launches == n_seg, trace_segment.launches
+    check_folds("11", "records", n_seg, device)
     for name in ("on", "off"):
         tb = np.load(out_dir / f"ray_tracing_compare_s_{name}.npz")
         assert np.all(np.isfinite(tb["emission_cube"])), name
@@ -830,7 +936,8 @@ MESH_TB_RTOL, MESH_VI_ATOL = 1e-6, 1e-6
 
 def hold_mesh_map(tag, ranks, one, n_seg):
     """Every rank's map against the one-process map `one` under the mesh
-    bar, each rank's launches = segments; prints each rank's stages."""
+    bar, each rank's trace and record-fold launches = segments; prints
+    each rank's stages."""
     d_tb = d_vi = 0.0
     for r in sorted(ranks, key=lambda r: r["rank"]):
         t = r["timings"]
@@ -838,8 +945,10 @@ def hold_mesh_map(tag, ranks, one, n_seg):
             f"{r['wall']:.3f} s; resample {t['resample']:.4f} s, trace "
             f"{t['trace']:.4f} s, transfer {t['transfer']:.4f} s, gather "
             f"{t['gather']:.4f} s, finish {t['finish']:.4f} s; kernel "
-            f"launches {r['launches']} = segments {n_seg}")
+            f"launches {r['launches']} = record-fold launches "
+            f"{r['fold_launches']} = segments {n_seg}")
         assert r["launches"] == n_seg == t["segments"], r["launches"]
+        assert r["fold_launches"] == n_seg, r["fold_launches"]
         tb, vi = r["emission_cube"], r["emission_polVI_cube"]
         ref_tb, ref_vi = one["emission_cube"], one["emission_polVI_cube"]
         assert tb.shape == ref_tb.shape and np.all(np.isfinite(tb))
@@ -857,7 +966,8 @@ def hold_mesh_map(tag, ranks, one, n_seg):
 
 # phase 12's torchrun script: the README's multi-device example with its
 # devices and backend named, so that two ranks share one card over gloo.
-# Each rank pickles its map, coordinates, stages and kernel launches; rank
+# Each rank pickles its map, coordinates, stages and the launches of the
+# trace kernel and the record fold; rank
 # 0 alone writes out_path, as in the example.
 TORCHRUN_SCRIPT = """\
 import json, pickle, sys, time
@@ -865,12 +975,13 @@ import torch.distributed as dist
 from raytracinggrff_tpu_torch import (RayEmissionConfig, make_mesh,
                                       run_ray_tracing_emission)
 from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
+from raytracinggrff_tpu_torch.ops.transfer_fold import LAUNCHES
 
 model_path, out_dir = sys.argv[1], sys.argv[2]
 config, devices = json.loads(sys.argv[3]), json.loads(sys.argv[4])
 mesh = make_mesh(n_ray_shards=2, devices=devices, backend="gloo")
 timings = {}
-trace_segment.launches = 0
+trace_segment.launches = LAUNCHES["records"] = 0
 t0 = time.perf_counter()
 result = run_ray_tracing_emission(
     model_path=model_path, config=RayEmissionConfig(**config), mesh=mesh,
@@ -883,7 +994,8 @@ with open(f"{out_dir}/rank{mesh.rank}.pkl", "wb") as f:
                  "emission_cube": result["emission_cube"],
                  "emission_polVI_cube": result["emission_polVI_cube"],
                  "wall": wall, "timings": timings,
-                 "launches": trace_segment.launches}, f)
+                 "launches": trace_segment.launches,
+                 "fold_launches": LAUNCHES["records"]}, f)
 dist.destroy_process_group()
 """
 
@@ -975,9 +1087,10 @@ def phase_mesh(tmp, one, device="cuda", backend="gloo",
     summary = dryrun.dryrun_multichip(n, device=device, backend=backend)
     for r in summary["ranks"]:
         assert r["launches"] == r["timings"]["segments"], r["launches"]
+        assert r["fold_launches"] == r["launches"], r["fold_launches"]
     say(f"[12] dryrun_multichip({n}): {time.perf_counter() - t0:.3f} s; "
         f"kernel launches per rank {[r['launches'] for r in summary['ranks']]}"
-        f" = segments; "
+        f" = record-fold launches = segments; "
         f"map max |dT_b| {summary['max_abs_tb']:.3g} K, |dV/I| "
         f"{summary['max_abs_vi']:.3g}; straggler factor "
         f"{summary['straggler_factor']}")
@@ -986,8 +1099,9 @@ def phase_mesh(tmp, one, device="cuda", backend="gloo",
 
 
 def phase_float64(tmp, device="cuda"):
-    """Phase 5's map through the kernel (n_pix 32 x 600 steps, nfreq 2, S
-    input on, mechanism 5) against the float64 reference: the same records
+    """Phase 5's map through the kernels (trace and record fold; n_pix 32 x
+    600 steps, nfreq 2, S input on, mechanism 5) against the float64
+    reference: the same records
     (trace_rays_segments) as LOS columns with the streamed path's validity
     and ds (sampler.los_from_records), S x pixel area as the source areas,
     through grff/reference.grff_transfer_reference on the host. Bar: lit
@@ -1010,8 +1124,10 @@ def phase_float64(tmp, device="cuda"):
     cubes = prepare_cubes(MASModel(synthetic_mas_model(Path(tmp) / "c64")),
                           grid, 0.0, verbose=False, device=device)
     cfg = RayEmissionConfig(**dict(SLICE, n_pix=32, n_steps=600, nfreq=2))
+    reset_counts()
     tb = run_ray_tracing_emission(cubes=cubes, config=cfg, verbose=False,
                                   device=device)["emission_cube"]
+    check_folds("13", "records", n_segments(cfg), device)
     _, _, start, kdir = image_ray_starts(cfg.n_pix, cfg.x_fov,
                                          cfg.z_observer)
     t0 = time.perf_counter()
@@ -1143,11 +1259,11 @@ def phase_fma(tmp, fma_lib):
     from raytracinggrff_tpu_torch.grids import UniformGrid
     from raytracinggrff_tpu_torch.mas.model import (MASModel,
                                                     synthetic_mas_model)
-    from raytracinggrff_tpu_torch.ops import trace_segment as ts
+    from raytracinggrff_tpu_torch.ops import _build
     from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
                                                    prepare_cubes,
                                                    run_ray_tracing_emission)
-    libs = {"fma": fma_lib, "shipped": ts._library()}
+    libs = {"fma": fma_lib, "shipped": _build.library()}
     out = fma_trace(libs)
     model = synthetic_mas_model(Path(tmp) / "corona_fma", timestep=2)
     cubes = prepare_cubes(MASModel(model), UniformGrid.cube(3.0, 128), 0.0,
@@ -1181,8 +1297,8 @@ def phase_fma(tmp, fma_lib):
     worst_pixels("14", maps["shipped"], maps["fma"])
     held = out["production"]["held"] and out["sweep29"]["held"]
     say(f"[14] (c) the FMA build {'holds' if held else 'misses'} the map "
-        f"bars; shipped nvcc flags end in {ts.NVCC_FLAGS[-1]}")
-    assert held or "-fmad=false" in ts.NVCC_FLAGS
+        f"bars; shipped nvcc flags end in {_build.NVCC_FLAGS[-1]}")
+    assert held or "-fmad=false" in _build.NVCC_FLAGS
     return out
 
 
@@ -1190,17 +1306,20 @@ def phase_harness():
     """Phase 15: the port's benchmark harness (bench_torch.py) in this
     process at the canonical size, trace and pipeline mode, --repeat 3;
     each prints its JSON line. Every run (one warm-up, three repeats)
-    launches the kernel once per segment."""
+    launches the trace kernel once per segment, and in pipeline mode the
+    record fold too."""
     from raytracinggrff_tpu_torch import harness
     from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
     out = {}
     for mode in ([], ["--pipeline"]):
-        trace_segment.launches = 0
+        reset_counts()
         res = harness.main(["--repeat", "3", *mode])
         launches = trace_segment.launches
+        folds = check_folds("15", "records", 4 * 8 if mode else 0)
         say(f"[15] harness {res['metric']}: {res['value']:.6g} "
             f"{res['unit']}, median of {res['times_s']}; kernel launches "
-            f"{launches} = 4 runs x 8 segments")
+            f"{launches} = 4 runs x 8 segments, record-fold launches "
+            f"{folds}")
         assert launches == 4 * 8, launches
         assert np.isfinite(res["value"]) and res["value"] > 0
         assert {"gpu", "power_limit"} <= set(res["workload"])
@@ -1246,7 +1365,7 @@ def phase_series(tmp, device="cuda", **overrides):
         resample = time.perf_counter() - t0
         npz = Path(tmp) / f"series_{i}.npz"
         timings = {}
-        trace_segment.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         res = run_ray_tracing_emission(cubes=cubes, config=cfg, out_path=npz,
                                        verbose=False, device=device,
@@ -1254,17 +1373,19 @@ def phase_series(tmp, device="cuda", **overrides):
         wall = time.perf_counter() - t0
         launches = trace_segment.launches
         assert launches == n_seg == timings["segments"], (launches, n_seg)
+        check_folds("16", "records", n_seg, device)
         rate = cfg.n_pix ** 2 * steps / timings["trace"]
         say(f"[16] step {i}: prepare_cubes(at_time({i})) {resample:.4f} s; "
             f"map wall {wall:.3f} s, trace {timings['trace']:.4f} s "
             f"({rate:.4g} ray-steps/s over {steps} steps), transfer "
             f"{timings['transfer']:.4f} s, finish {timings['finish']:.4f} s;"
-            f" kernel launches {launches} = segments {n_seg}")
-        trace_segment.launches = 0
+            f" kernel and record-fold launches {launches} = segments {n_seg}")
+        reset_counts()
         direct = run_ray_tracing_emission(model_path=path, timestep=i,
                                           config=cfg, verbose=False,
                                           device=device)
         assert trace_segment.launches == n_seg, trace_segment.launches
+        check_folds("16", "records", n_seg, device)
         d_tb = float(np.max(np.abs(res["emission_cube"]
                                    - direct["emission_cube"])))
         d_vi = float(np.max(np.abs(res["emission_polVI_cube"]
@@ -1287,6 +1408,251 @@ def phase_series(tmp, device="cuda", **overrides):
     return out
 
 
+def fold_scene():
+    """The canonical scene's first segment (65,536 rays x 64 records,
+    phase 3) traced with a B-vector field, 10x the bundle scene's (|B| of
+    order 10 G, so that gyroresonance layers at 75-89 MHz lie in the cube,
+    and row 7 holds cos theta(B, k)). Returns the records and ray
+    starts."""
+    from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
+    from raytracinggrff_tpu_torch.tracer_segments import (initial_state,
+                                                          prepare_trace_inputs)
+    grid, f, start, kdir = canonical_scene()
+    x, y, z = (torch.as_tensor(a.astype(np.float32), device=f["wpe"].device)
+               for a in np.meshgrid(*grid.axes(), indexing="ij"))
+    bvec = (10.0 * (1.0 + 0.2 * x), 10.0 * (0.5 * y - 0.3),
+            10.0 * (0.2 - 0.4 * z))
+    b = torch.sqrt(sum(c * c for c in bvec))
+    tcube, scube = prepare_trace_inputs(f["wpe"], f["ne"], f["te"], b, grid,
+                                        bvec)
+    state = initial_state(tcube, grid, 75e6, start, kdir)
+    _, recs = trace_segment(tcube, scube, state, grid, 6e-3, 1, 10, 64)
+    return recs, start
+
+
+def fold_flops(nf, mechanism, gaunt, s_max=30):
+    """float32 operations of one valid voxel of the fold at nf
+    frequencies, beyond those of its record (FOLD_FLOPS_*)."""
+    terms = [FOLD_FLOPS_COMMON]
+    if mechanism & 1:
+        terms.append(FOLD_FLOPS_FF[gaunt])
+        if mechanism & 4:
+            terms.append(FOLD_FLOPS_NEUTRALS)
+    if mechanism & 2:
+        terms += [FOLD_FLOPS_GR] + [FOLD_FLOPS_HARMONIC] * max(0, s_max - 1)
+    return sum(once + nf * per_freq for once, per_freq in terms)
+
+
+def fold_records_bound(recs, prev, nf, mechanism, gaunt="dulk", s_on=True,
+                       theta_los=False):
+    """Least time for one record fold from the last valid positions
+    `prev`. Operations: those of the records the fold takes (valid by
+    sampler.record_step, with finite fields and ds > 0; it skips the
+    others), FOLD_FLOPS_RECORD and its S area and angle terms, and
+    fold_flops. Bytes: of every record the rows that decide its validity
+    (0-3, and 7 with theta_los), and rows 4-6 of the valid ones; the carry
+    and the last valid positions read and written once. Returns (ms,
+    "operations" or "bytes", the records taken)."""
+    from raytracinggrff_tpu_torch.constants import R_SUN_CM
+    from raytracinggrff_tpu_torch.sampler import record_step
+    n_step = n_valid = 0
+    for rec in recs:
+        valid, ds, prev = record_step(
+            rec[0:3].T, rec[3], prev, np.float32(R_SUN_CM),
+            torch.isfinite(rec[7]) if theta_los else None)
+        taken = (valid & torch.isfinite(rec[4:7]).all(dim=0)
+                 & torch.isfinite(ds) & (ds > 0))
+        n_step += int(valid.sum())
+        n_valid += int(taken.sum())
+    per_rec = FOLD_FLOPS_RECORD + int(s_on) + 3 * int(theta_los)
+    ops = n_valid * (per_rec + fold_flops(nf, mechanism, gaunt))
+    rps, n = recs.shape[0], recs.shape[2]
+    nbytes = 4 * ((4 + int(theta_los)) * rps * n + 3 * n_step
+                  + 2 * 4 * n * nf + 2 * 3 * n + nf)
+    return (*bound(ops, nbytes), n_valid)
+
+
+def fold_voxels_bound(ds, te, ne, b, valid, freqs, area, sarea=None,
+                      theta=None, mech=None, theta_deg=90.0, mechanism=5,
+                      s_max=30, gaunt="dulk", carry=None):
+    """Least time for one voxel fold, called as fold_voxels. Operations:
+    fold_flops of the voxels it takes (flagged valid, finite fields, ds >
+    0), and sin and cos of a per-voxel theta. Bytes: the flags of all
+    voxels, ds/te/ne/b of the flagged ones, sarea/theta/mech of the taken
+    ones, the carry read (if given) and written once. Returns (ms,
+    "operations" or "bytes", the voxels taken)."""
+    taken = (valid & torch.isfinite(ne) & torch.isfinite(te)
+             & torch.isfinite(b) & torch.isfinite(ds) & (ds > 0))
+    n_flag, n_valid = int(valid.sum()), int(taken.sum())
+    n, nf = ds.shape[1], freqs.shape[0]
+    ops = n_valid * (fold_flops(nf, mechanism, gaunt, s_max)
+                     + 2 * int(theta is not None))
+    extra = sum(t is not None for t in (sarea, theta, mech))
+    nbytes = (valid.numel() + 4 * (4 * n_flag + extra * n_valid + nf)
+              + 4 * 4 * n * nf * (1 + int(carry is not None)))
+    return (*bound(ops, nbytes), n_valid)
+
+
+def fold_agreement(out, ref):
+    """Kernel carry `out` against plain `ref`: the max relative flux
+    difference over entries above 1e-30, the max absolute flux difference,
+    and the (ray, frequency) entries whose evanescent state (tau = inf) is
+    the same in both modes, as (count, total)."""
+    rel = absd = 0.0
+    for a, b in zip(out[:2], ref[:2]):
+        sel = torch.isfinite(b) & (b.abs() > 1e-30)
+        d = (a - b).abs()
+        rel = max(rel, float((d[sel] / b[sel].abs()).max()))
+        absd = max(absd, float(d[torch.isfinite(d)].max()))
+    same = ((torch.isinf(out[2]) == torch.isinf(ref[2]))
+            & (torch.isinf(out[3]) == torch.isinf(ref[3])))
+    return rel, absd, (int(same.sum()), same.numel())
+
+
+@contextlib.contextmanager
+def captured_voxel_folds():
+    """Record the arguments of each fold_voxels call while the block runs;
+    the calls run and count as usual."""
+    from raytracinggrff_tpu_torch.ops import transfer_fold as tf
+    fold = tf.fold_voxels
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return fold(*args, **kw)
+
+    tf.fold_voxels = spy
+    try:
+        yield seen
+    finally:
+        tf.fold_voxels = fold
+
+
+def phase_fold(out, tmp, los6, device="cuda", n_pix=256, n_steps=5000,
+               grid_n=128):
+    """Phase 17: the transfer folds against their plain versions. (a) The
+    record fold alone on fold_scene at nfreq 3 with S input (the main
+    path's settings), mechanisms 5 and 7, fixed theta and theta_mode
+    'los'; (b) the production map and phase 7's gyroresonance map with
+    their transfer through the kernel and through the plain fold; (c) the
+    LOS chain's synthetic_ff on phase 6's LOS data `los6` through the
+    voxel fold and the plain one, and that fold alone. Fills out["fold"]
+    (the main path's fold, mechanism 5 at a fixed theta) and
+    out["voxel_fold"] for the kernels line. The maps are SLICE's with
+    `n_pix`, `n_steps` and `grid_n`."""
+    from raytracinggrff_tpu_torch.constants import R_SUN_CM
+    from raytracinggrff_tpu_torch.grff.transfer import (log_spaced_freqs,
+                                                        transfer_carry_init)
+    from raytracinggrff_tpu_torch.grids import UniformGrid
+    from raytracinggrff_tpu_torch.mas.model import (MASModel,
+                                                    synthetic_mas_model)
+    from raytracinggrff_tpu_torch.ops import transfer_fold as tf
+    from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
+                                                   prepare_cubes,
+                                                   run_ray_tracing_emission,
+                                                   synthetic_ff)
+    recs, start = fold_scene()
+    n = recs.shape[2]
+    freqs = torch.as_tensor(log_spaced_freqs(75e6, 3, 0.05),
+                            dtype=torch.float32, device=recs.device)
+    area = ((2 * 1.44) / round(n ** 0.5) * R_SUN_CM) ** 2
+    carry0 = transfer_carry_init(n, 3, recs.device)
+    prev = torch.as_tensor(start, device=recs.device)
+    for mechanism in (5, 7):
+        for theta_los in (False, True):
+            kw = dict(theta_deg=90.0, mechanism=mechanism, s_on=True,
+                      theta_los=theta_los)
+            res, _ = tf.fold_records(recs, carry0, prev, freqs, area, **kw)
+            ref, _ = tf.fold_records_plain(recs, carry0, prev, freqs, area,
+                                           **kw)
+            rel, absd, (same, total) = fold_agreement(res, ref)
+            ms = cuda_ms(lambda: tf.fold_records(recs, carry0, prev, freqs,
+                                                 area, **kw), reps=20)
+            plain_ms = cuda_ms(lambda: tf.fold_records_plain(
+                recs, carry0, prev, freqs, area, **kw), reps=1)
+            bound_ms, bound_by, n_valid = fold_records_bound(
+                recs, prev, 3, mechanism, s_on=True, theta_los=theta_los)
+            what = "theta_mode 'los'" if theta_los else "fixed theta"
+            say(f"[17] (a) record fold, mechanism {mechanism}, {what} "
+                f"({n} rays x {recs.shape[0]} records x 3 frequencies, "
+                f"{n_valid} valid records): kernel vs plain, flux max rel "
+                f"{rel:.3g} (bar 1e-4), max |diff| {absd:.3g} SFU; "
+                f"evanescent sets equal on {same} of {total} entries "
+                f"({total - same} differ; bar 0.999 of them); kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.4f} of it")
+            assert rel <= 1e-4 and same >= 0.999 * total, (rel, same, total)
+            if mechanism == 5 and not theta_los:
+                out["fold"] = dict(ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   max_abs_err=absd)
+    del recs, carry0
+
+    model = synthetic_mas_model(Path(tmp) / "corona_fold", timestep=2)
+    grid = UniformGrid.cube(3.0, grid_n)
+    cubes = prepare_cubes(MASModel(model), grid, 0.0, verbose=False,
+                          device=device)
+    gr_model = synthetic_mas_model(Path(tmp) / "corona_fold_gr",
+                                   b0_gauss=50.0)
+    gr_cubes = prepare_cubes(MASModel(gr_model), grid, 0.0, verbose=False,
+                             keep_bvec=True, device=device)
+    sizes = dict(SLICE, n_pix=n_pix, n_steps=n_steps, grid_n=grid_n)
+    cfg = RayEmissionConfig(**sizes)
+    cfg_gr = RayEmissionConfig(**dict(sizes, mechanism=7, theta_mode="los"))
+    for name, c, cb, bar in (("production map", cfg, cubes, DV_BAR_FIXED),
+                             ("gyroresonance map", cfg_gr, gr_cubes,
+                              DV_BAR_GR)):
+        t_k, t_p = {}, {}
+        reset_counts()
+        r_k = run_ray_tracing_emission(cubes=cb, config=c, verbose=False,
+                                       device=device, timings=t_k)
+        folds = check_folds("17", "records", n_segments(c), device)
+        with plain_folds():
+            r_p = run_ray_tracing_emission(cubes=cb, config=c,
+                                           verbose=False, device=device,
+                                           timings=t_p)
+        hold_maps("17", f"(b) {name} {n_pix}^2 x {n_steps} x {grid_n}^3, "
+                  f"transfer "
+                  f"through the kernel ({folds} launches, "
+                  f"{t_k['transfer']:.4f} s) vs the plain fold "
+                  f"({t_p['transfer']:.4f} s)", r_p, r_k, bar,
+                  disk_mask(n_pix, 1.44))
+    del cubes, gr_cubes
+
+    reset_counts()
+    with captured_voxel_folds() as seen:
+        em_k = synthetic_ff(los6["los"], 450e6, 4, 0.1, verbose=False,
+                            device=device)
+    check_folds("17", "voxels", 1, device)
+    with plain_folds():
+        em_p = synthetic_ff(los6["los"], 450e6, 4, 0.1, verbose=False,
+                            device=device)
+    for key in ("emission_cube", "emission_polVI_cube"):
+        np.testing.assert_array_equal(em_k[key], los6["map"][key])
+    n_pix = em_k["emission_cube"].shape[0]
+    hold_maps("17", f"(c) LOS chain synthetic_ff {n_pix}^2, voxel fold vs "
+              f"the plain fold", em_p, em_k, DV_BAR_FIXED,
+              disk_mask(n_pix, 1.44))
+    args, kw = seen[0]
+    res = tf.fold_voxels(*args, **kw)
+    ref = tf.fold_voxels_plain(*args, **kw)
+    rel, absd, (same, total) = fold_agreement(res, ref)
+    ms = cuda_ms(lambda: tf.fold_voxels(*args, **kw), reps=20)
+    plain_ms = cuda_ms(lambda: tf.fold_voxels_plain(*args, **kw), reps=1)
+    bound_ms, bound_by, n_valid = fold_voxels_bound(*args, **kw)
+    ds, nf, mechanism = args[0], args[5].shape[0], args[11]
+    say(f"[17] (c) voxel fold alone ({ds.shape[0]} voxels x {ds.shape[1]} "
+        f"pixels x {nf} frequencies, mechanism {mechanism}, {n_valid} valid "
+        f"voxels): kernel vs plain, flux max rel {rel:.3g}, max |diff| "
+        f"{absd:.3g} SFU, evanescent sets equal on {same} of {total}; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.4f} of it")
+    assert rel <= 1e-4 and same >= 0.999 * total, (rel, same, total)
+    out["voxel_fold"] = dict(launches=los6["fold_launches"], ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, max_abs_err=absd)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1303,7 +1669,7 @@ def main():
             one = phase_main(out, tmp)
         cubes = phase_map()
         with tempfile.TemporaryDirectory() as tmp:
-            phase_los(tmp)
+            los6 = phase_los(tmp)
             phase_gyro(tmp)
             phase_compare(tmp)
         phase_per_step(out, cubes)
@@ -1318,14 +1684,24 @@ def main():
         phase_harness()
         with tempfile.TemporaryDirectory() as tmp:
             phase_series(tmp)
+            phase_fold(out, tmp, los6)
+        del los6
     say(f"total {time.perf_counter() - t_all:.1f} s")
-    say(json.dumps({"kernels": [{
-        "name": "trace_segment", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": out["launches"],
-        "max_abs_err": out["max_abs_err"], "ms": out["ms"],
-        "plain_ms": out["plain_ms"], "bound_ms": out["bound_ms"],
-        "bound_by": out["bound_by"], "library_ms": None,
-        "bound_share": out["bound_ms"] / out["ms"]}]}))
+    fold, vfold = out["fold"], out["voxel_fold"]
+    kernels = [
+        dict(name="trace_segment", source=KERNEL_SOURCE,
+             replaces=KERNEL_REPLACES, launches=out["launches"],
+             max_abs_err=out["max_abs_err"], ms=out["ms"],
+             plain_ms=out["plain_ms"], bound_ms=out["bound_ms"],
+             bound_by=out["bound_by"]),
+        dict(fold, name="fold_records", source=FOLD_SOURCE,
+             replaces=FOLD_REPLACES["records"],
+             launches=out["fold_launches"]),
+        dict(vfold, name="fold_voxels", source=FOLD_SOURCE,
+             replaces=FOLD_REPLACES["voxels"])]
+    say(json.dumps({"kernels": [
+        dict(k, route="cuda", library_ms=None,
+             bound_share=k["bound_ms"] / k["ms"]) for k in kernels]}))
     say(smi_line())
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -91,8 +91,8 @@ def sass_mix(lib, top=16, kernel="ILb1ELb0ELi1EiE"):
     cumulative S, 4 channels, 32-bit offsets. Its step loop is
     straight-line code, so the counts are about one step's instruction mix
     plus one record."""
-    from raytracinggrff_tpu_torch.ops import trace_segment as ts
-    cuobjdump = Path(ts._nvcc()).with_name("cuobjdump")
+    from raytracinggrff_tpu_torch.ops import _build
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", lib._name],
                           capture_output=True, text=True, check=True).stdout
     body = next(sec for sec in sass.split("Function : ")
@@ -107,11 +107,11 @@ def sass_mix(lib, top=16, kernel="ILb1ELb0ELi1EiE"):
 def flag_sets():
     """The builds of phase cache and the shipped build's counting twin
     ("count")."""
-    from raytracinggrff_tpu_torch.ops import trace_segment as ts
-    sets = {name: ts.FMA_NVCC_FLAGS + defs
+    from raytracinggrff_tpu_torch.ops import _build
+    sets = {name: _build.FMA_NVCC_FLAGS + defs
             for name, defs in CACHE_VARIANTS.items()}
-    assert sets["shipped"] == ts.NVCC_FLAGS
-    sets["count"] = ts.NVCC_FLAGS + ("-DRGRFF_COUNT_CACHE",)
+    assert sets["shipped"] == _build.NVCC_FLAGS
+    sets["count"] = _build.NVCC_FLAGS + ("-DRGRFF_COUNT_CACHE",)
     return sets
 
 
@@ -334,13 +334,14 @@ def ptxas_usage(log):
 
 
 def phase_s_mode():
+    from raytracinggrff_tpu_torch.ops import _build
     from raytracinggrff_tpu_torch.ops import trace_segment as ts
-    _, log = ts.build_library()
+    _, log = _build.build_library()
     usage = ptxas_usage(log)
     for name, line in sorted(usage.items()):
         say(f"[s_mode] ptxas {name}: {line}")
     for name in ("ILb1ELb0ELi1EiE", "ILb1ELb1ELi1EiE"):
-        total, top = sass_mix(ts._library(), top=6, kernel=name)
+        total, top = sass_mix(_build.library(), top=6, kernel=name)
         say(f"[s_mode] SASS {name}: {total} instructions; "
             + ", ".join(f"{op} {n}" for op, n in top))
     tcube, scube, state, grid = canonical_args(256)

@@ -58,7 +58,7 @@
 #include <cmath>
 #include <cstdint>
 
-struct TraceParams {  // mirrored by ops/trace_segment.py::_TraceParams
+struct TraceParams {  // mirrored by ops/_build.py::_TraceParams
   float dt, c_r, perturb_ratio;
   float x0, y0, z0, inv_dx, inv_dy, inv_dz;
   float fill_ne, fill_te, fill_b;

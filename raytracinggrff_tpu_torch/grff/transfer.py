@@ -12,8 +12,9 @@ reference's RL[5] slot and flux_x RL[6].
 
 Voxel arrays are step-major (Nz, n_pix); voxel 0 is the far end of the
 integration and the emergent intensity is taken after the last voxel.
-`make_voxel_update` is the one voxel update; `grff_transfer` loops it over
-the voxels of a batch, and `get_mw`/`get_mw_slice` are the GET_MW entry
+`make_voxel_update` is the one voxel update; `grff_transfer` folds the
+voxels of a batch through it (ops/transfer_fold.fold_voxels, a CUDA kernel
+on the card), and `get_mw`/`get_mw_slice` are the GET_MW entry
 points (script/synthetic_FF_map_single_thread.py:27-35,
 script/resample_with_ray_tracing.py:400-466), with the DEM mode.
 """
@@ -177,35 +178,34 @@ def grff_transfer(ds, te, ne, b, valid, freqs_hz, pixel_area_cm2,
     (Parms[4]); mechanism an int or a per-voxel host array whose bitwise
     union decides which terms are computed (Parms[6]); s_max caps the gyro
     harmonics (Parms[7]); s_area_cm2 (Nz, n_pix) > 0 overrides the pixel
-    area (Parms[14])."""
+    area (Parms[14]). One ops/transfer_fold.fold_voxels call folds every
+    voxel (the JAX package's _grff_transfer_jit scan)."""
+    # ops.transfer_fold builds on this module's voxel update
+    from ..ops.transfer_fold import fold_voxels
     f32 = torch.float32
 
     def t(a, dtype=f32):
-        return torch.as_tensor(a, dtype=dtype, device=device)
+        return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
 
     ds, te, ne, b = t(ds), t(te), t(ne), t(b)
     valid = t(valid, torch.bool)
     freqs = t(np.asarray(freqs_hz, np.float64))
     shape = ds.shape
-    sarea = (torch.zeros_like(ds) if s_area_cm2 is None
-             else t(s_area_cm2).expand(shape))
+    sarea = (None if s_area_cm2 is None
+             else t(s_area_cm2).expand(shape).contiguous())
     theta = None
     if np.ndim(theta_deg) > 0:
-        theta = torch.deg2rad(_per_voxel(theta_deg, shape, f32, device))
+        theta = torch.deg2rad(_per_voxel(theta_deg, shape, f32,
+                                         device)).contiguous()
         theta_deg = -1.0        # unused with per-voxel theta
     mech = None
     if np.ndim(mechanism) > 0:
         m = np.asarray(mechanism, np.int32)
-        mech = _per_voxel(m, shape, torch.int32, device)
+        mech = _per_voxel(m, shape, torch.int32, device).contiguous()
         mechanism = int(np.bitwise_or.reduce(m.reshape(-1))) if m.size else 0
-    update = make_voxel_update(freqs, pixel_area_cm2, float(theta_deg),
-                               int(mechanism), int(s_max), str(gaunt))
-    carry = transfer_carry_init(shape[1], freqs.shape[0], device)
-    for k in range(shape[0]):
-        carry = update(carry, ds[k], te[k], ne[k], b[k], valid[k], sarea[k],
-                       None if theta is None else theta[k],
-                       None if mech is None else mech[k])
-    f_o, f_x, t_o, t_x = carry
+    f_o, f_x, t_o, t_x = fold_voxels(
+        ds, te, ne, b, valid, freqs, pixel_area_cm2, sarea, theta, mech,
+        float(theta_deg), int(mechanism), int(s_max), str(gaunt))
     return GrffResult(freqs_ghz=freqs / 1e9, flux_o=f_o, flux_x=f_x,
                       tau_o=t_o, tau_x=t_x)
 

@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from .grids import UniformGrid
-from .ops import trace_segment as ts
+from .ops import _build
 from .pipeline import (RayEmissionConfig, image_ray_starts,
                        run_ray_tracing_emission)
 from .tracer_segments import iter_trace_segments
@@ -212,7 +212,7 @@ def main(argv=None):
     with torch.inference_mode():
         t0 = time.perf_counter()
         if cuda:
-            ts._library()
+            _build.library()
             note(f"trace kernel build and load: "
                  f"{time.perf_counter() - t0:.3f}s")
         stage_s = run()

@@ -1,0 +1,136 @@
+"""The kernel library of csrc/: its nvcc build, its loading and its C
+interface.
+
+Every csrc/*.cu file is compiled by one nvcc call into one shared library
+with a plain C interface, built at first use into
+raytracinggrff_tpu_torch/_build/ (git-ignored) and named by a hash of the
+sources and flags, then loaded with ctypes. The parameter structs mirror
+those of the sources: _TraceParams for csrc/trace_segment.cu, _FoldParams
+for csrc/transfer_fold.cu.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+# The shipped build keeps nvcc from contracting a*b+c into FMAs
+# (-fmad=false), so it rounds as the plain version's separate torch ops do:
+# its records equal theirs bit for bit, over whole traces too (chip_smoke.py
+# phase 14 (b)), and the CUDA tests hold it to that. FMA_NVCC_FLAGS lets
+# nvcc contract, which takes the canonical segment from 4.95-5.00 to
+# 4.18-4.21 ms on an H100 80GB HBM3 at 700 W (profile_slice.py phase cache,
+# PERF.md); but over a whole trace some of its rays part from the plain
+# version's, and the 256^2 production map then moves outside the map bars
+# (phase 14 (c)), so that build serves only for measurement.
+FMA_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                  "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+                  "-Xptxas", "-v")
+NVCC_FLAGS = FMA_NVCC_FLAGS + ("-fmad=false",)
+# harmonics 2..MAX_HARMONIC of the gyroresonance sum (kMaxHarmonic in
+# csrc/transfer_fold.cu)
+MAX_HARMONIC = 128
+
+
+class _TraceParams(ctypes.Structure):
+    """Mirror of struct TraceParams in csrc/trace_segment.cu."""
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "dt", "c_r", "perturb_ratio", "x0", "y0", "z0",
+        "inv_dx", "inv_dy", "inv_dz", "fill_ne", "fill_te", "fill_b")] + [
+        (name, ctypes.c_int) for name in (
+            "nx", "ny", "nz", "n_rays", "n_first", "stride", "rps",
+            "crosssections", "sample_channels", "wide_index", "per_step")]
+
+
+FOLD_INT_FIELDS = ("n_rays", "nf", "n_steps", "mechanism", "gaunt_exact",
+                   "s_max", "theta_per_voxel", "s_on")
+FOLD_FLOAT_FIELDS = (
+    "theta0", "area", "inv_au_sq", "r_sun_cm", "src_coef", "fpe_sq", "fb",
+    "kappa_ff", "kappa_ff_exact", "gaunt_cl", "gaunt_born", "sqrt3_over_pi",
+    "saha", "neg_chi", "sigma_eh", "vmean_num", "inv_vmean_den", "c_cgs",
+    "kb", "inv_mec2", "gr_pref", "sqrt_2pi")
+
+
+class _FoldParams(ctypes.Structure):
+    """Mirror of struct FoldParams in csrc/transfer_fold.cu."""
+    _fields_ = ([(name, ctypes.c_int) for name in FOLD_INT_FIELDS]
+                + [(name, ctypes.c_float) for name in FOLD_FLOAT_FIELDS]
+                + [("log_s2", ctypes.c_float * (MAX_HARMONIC + 1)),
+                   ("lgam", ctypes.c_float * (MAX_HARMONIC + 1))])
+
+
+def _nvcc():
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or PATH); the "
+                           "kernel library builds from csrc/ with it")
+    return found
+
+
+def build_library(flags=NVCC_FLAGS):
+    """Compile csrc/*.cu with nvcc `flags` into _build/ unless a library of
+    the same sources and flags is there already. Returns (path, ptxas
+    log)."""
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    tag = h.hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = BUILD_DIR / f"librgrff_kernels_{tag}.so"
+    log = BUILD_DIR / f"librgrff_kernels_{tag}.log"
+    if not lib.exists():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *flags, "-o", tmp, *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        log.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)
+    return lib, (log.read_text() if log.exists() else "")
+
+
+@functools.cache
+def library():
+    """The kernel library, built if needed and loaded once per process."""
+    return load_library(build_library()[0])
+
+
+def load_library(path):
+    """Load a library built by build_library and declare its C entries."""
+    lib = ctypes.CDLL(str(path))
+    ptr = ctypes.c_void_p
+    lib.rgrff_trace_segment.argtypes = [ptr, ptr, ptr, ptr, ptr,
+                                        _TraceParams, ptr, ptr]
+    lib.rgrff_trace_segment.restype = ctypes.c_int
+    lib.rgrff_cache_counters.argtypes = []
+    lib.rgrff_cache_counters.restype = ctypes.c_int
+    # recs, freqs, carry_in (4), prev_in, carry_out, prev_out, params,
+    # stream
+    lib.rgrff_fold_records.argtypes = [ptr] * 9 + [
+        ctypes.POINTER(_FoldParams), ptr]
+    lib.rgrff_fold_records.restype = ctypes.c_int
+    # ds, te, ne, b, valid, sarea, theta, mech, freqs, carry_in (4),
+    # carry_out, params, stream
+    lib.rgrff_fold_voxels.argtypes = [ptr] * 14 + [
+        ctypes.POINTER(_FoldParams), ptr]
+    lib.rgrff_fold_voxels.restype = ctypes.c_int
+    lib.rgrff_error_string.argtypes = [ctypes.c_int]
+    lib.rgrff_error_string.restype = ctypes.c_char_p
+    return lib

@@ -19,21 +19,12 @@ the gather tables of ops/trilinear.pack_fields. The ray state is (7, n_rays)
 rows [x, y, z, kx, ky, kz, cumS].
 
 Dispatch is by device: a CPU tensor runs the plain torch version; a CUDA
-tensor launches the kernel or raises. The kernel library is built with
-nvcc at first use into raytracinggrff_tpu_torch/_build/, named by a hash
-of the sources and flags.
+tensor launches the kernel or raises. The kernel library (ops/_build.py)
+is built with nvcc at first use into raytracinggrff_tpu_torch/_build/,
+named by a hash of the sources and flags.
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -41,95 +32,12 @@ import torch
 from ..constants import C_R, FILL_B, FILL_NE, FILL_TE
 from ..grids import UniformGrid
 from ..tracer import advance_blocks, check_s_mode, cos_theta_signed
+from . import _build
+from ._build import _TraceParams
 from .trilinear import trilinear_packed
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-# The shipped build keeps nvcc from contracting a*b+c into FMAs
-# (-fmad=false), so it rounds as the plain version's separate torch ops do:
-# its records equal theirs bit for bit, over whole traces too (chip_smoke.py
-# phase 14 (b)), and the CUDA tests hold it to that. FMA_NVCC_FLAGS lets
-# nvcc contract, which takes the canonical segment from 4.95-5.00 to
-# 4.18-4.21 ms on an H100 80GB HBM3 at 700 W (profile_slice.py phase cache,
-# PERF.md); but over a whole trace some of its rays part from the plain
-# version's, and the 256^2 production map then moves outside the map bars
-# (phase 14 (c)), so that build serves only for measurement.
-FMA_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-                  "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-                  "-Xptxas", "-v")
-NVCC_FLAGS = FMA_NVCC_FLAGS + ("-fmad=false",)
 STATE_ROWS = 7
 RECORD_ROWS = 8
-
-
-class _TraceParams(ctypes.Structure):
-    """Mirror of struct TraceParams in csrc/trace_segment.cu."""
-    _fields_ = [(name, ctypes.c_float) for name in (
-        "dt", "c_r", "perturb_ratio", "x0", "y0", "z0",
-        "inv_dx", "inv_dy", "inv_dz", "fill_ne", "fill_te", "fill_b")] + [
-        (name, ctypes.c_int) for name in (
-            "nx", "ny", "nz", "n_rays", "n_first", "stride", "rps",
-            "crosssections", "sample_channels", "wide_index", "per_step")]
-
-
-def _nvcc():
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or PATH); the "
-                           "trace-segment kernel builds from csrc/ with it")
-    return found
-
-
-def build_library(flags=NVCC_FLAGS):
-    """Compile csrc/*.cu with nvcc `flags` into _build/ unless a library of
-    the same sources and flags is there already. Returns (path, ptxas
-    log)."""
-    sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(flags).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    tag = h.hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"librgrff_kernels_{tag}.so"
-    log = BUILD_DIR / f"librgrff_kernels_{tag}.log"
-    if not lib.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *flags, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
-    return lib, (log.read_text() if log.exists() else "")
-
-
-@functools.cache
-def _library():
-    """The kernel library, built if needed and loaded once per process."""
-    return load_library(build_library()[0])
-
-
-def load_library(path):
-    """Load a library built by build_library and declare its C entries."""
-    lib = ctypes.CDLL(str(path))
-    lib.rgrff_trace_segment.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, _TraceParams, ctypes.c_void_p,
-        ctypes.c_void_p]
-    lib.rgrff_trace_segment.restype = ctypes.c_int
-    lib.rgrff_cache_counters.argtypes = []
-    lib.rgrff_cache_counters.restype = ctypes.c_int
-    lib.rgrff_error_string.argtypes = [ctypes.c_int]
-    lib.rgrff_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def grid_param_vec(grid: UniformGrid):
@@ -187,7 +95,7 @@ def trace_segment(tcube, scube, state, grid: UniformGrid, dt, n_first,
     n_rays = state.shape[1]
     if n_rays >= 2 ** 31:
         raise ValueError(f"{n_rays} rays exceed the kernel's int range")
-    lib = _library()
+    lib = _build.library()
     state_out = torch.empty_like(state)
     records = torch.empty((rps, RECORD_ROWS, n_rays), dtype=torch.float32,
                           device=state.device)

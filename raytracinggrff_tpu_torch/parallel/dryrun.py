@@ -28,6 +28,7 @@ import torch
 
 from ..grids import UniformGrid
 from ..ops.trace_segment import trace_segment
+from ..ops.transfer_fold import LAUNCHES
 from ..pipeline import RayEmissionConfig, run_ray_tracing_emission
 from ..tracer_segments import iter_trace_segments
 from .launch import rank_devices, spawn
@@ -106,10 +107,10 @@ def map_rank(devices, shape, config, cubes=None, model_path=None):
     """One rank of a map over a `shape` mesh: run_ray_tracing_emission
     on its device from numpy `cubes` or a MAS `model_path`. Returns the map,
     the rank's mesh coordinates, wall seconds, stage timings and its
-    trace-kernel launches."""
+    trace-kernel and record-fold launches."""
     mesh = make_mesh(*shape, devices=devices)
     timings = {}
-    trace_segment.launches = 0
+    trace_segment.launches = LAUNCHES["records"] = 0
     t0 = time.perf_counter()
     res = run_ray_tracing_emission(
         model_path=model_path, config=config, verbose=False, mesh=mesh,
@@ -119,7 +120,8 @@ def map_rank(devices, shape, config, cubes=None, model_path=None):
             "emission_cube": res["emission_cube"],
             "emission_polVI_cube": res["emission_polVI_cube"],
             "wall": wall, "timings": timings,
-            "launches": trace_segment.launches}
+            "launches": trace_segment.launches,
+            "fold_launches": LAUNCHES["records"]}
 
 
 def scenes_rank(devices, shape, common, starts):
@@ -180,7 +182,8 @@ def dryrun_multichip(n_devices, device="cuda", backend=None, verbose=True):
         summary["ranks"].append({
             "rank": maps["rank"], "coords": maps["coords"],
             "wall": maps["wall"], "scenes_wall": maps["scenes_wall"],
-            "timings": maps["timings"], "launches": maps["launches"]})
+            "timings": maps["timings"], "launches": maps["launches"],
+            "fold_launches": maps["fold_launches"]})
     limb = results[0][1][1][1]
     sf = limb["straggler_factor"]
     summary.update(max_abs_tb=d_tb, max_abs_vi=d_vi, straggler_factor=sf,

@@ -78,7 +78,7 @@ def spawn(fn, n_procs, device="cuda", backend=None, args=()):
     backend = backend or default_backend(devices[0])
     check_devices(devices, backend)
     if torch.device(devices[0]).type == "cuda":
-        from ..ops.trace_segment import build_library
+        from ..ops._build import build_library
         build_library()
     workdir = tempfile.mkdtemp(prefix="rgrff_spawn_")
     try:

@@ -28,13 +28,13 @@ import torch
 from .constants import FPE_COEF, R_SUN_CM, R_SUN_M
 from .coords import image_xyz_to_mas_sph
 from .grids import UniformGrid, linear_z_grid, variable_z_grid
-from .grff.transfer import (get_mw_slice, log_spaced_freqs,
-                            make_voxel_update, tb_from_sfu,
+from .grff.transfer import (get_mw_slice, log_spaced_freqs, tb_from_sfu,
                             transfer_carry_init)
 from .mas.model import MASModel, resample_var_to_cube
+from .ops import transfer_fold
 from .parallel.mesh import (RayMesh, all_gather, gather_rays, shard_freqs,
                             shard_rays)
-from .sampler import LosSamples, record_step, valid_and_ds
+from .sampler import LosSamples, valid_and_ds
 from .tracer import check_s_mode
 from .tracer_segments import iter_trace_segments
 from .utils.plotting import inspection_pixel_index
@@ -373,8 +373,9 @@ def _center_los(rows, start, with_cos):
 def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
                              pixel_area_cm2, device, clock,
                              collect_center=False, mesh=None, stats=None):
-    """Stream trace segments into the transfer carry on the device.
-    Per record (pipeline.py:377-396 of the JAX package): a record is valid
+    """Stream trace segments into the transfer carry on the device: one
+    ops/transfer_fold.fold_records call a segment (the JAX package's
+    stream_seg, pipeline.py:377-396). Per record: a record is valid
     where its position and S are finite and S > 0; ds is the distance from
     the ray's last valid position in cm; with s_input_on the per-voxel
     source area is S times the pixel area; with theta_mode='los' row 7's
@@ -403,15 +404,9 @@ def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
         p_local = p_center // mesh.shape[0]
         collect_here = collect_center and mesh.ray_index == owner
     freqs = torch.as_tensor(local_freqs, dtype=torch.float32, device=device)
-    update = make_voxel_update(freqs, pixel_area_cm2, cfg.theta_deg,
-                               cfg.mechanism, gaunt=cfg.gaunt)
-    s_on = bool(cfg.s_input_on)
     theta_los = cfg.theta_mode == "los"
-    area32 = np.float32(pixel_area_cm2)
-    scale = np.float32(R_SUN_CM)
-
     carry = transfer_carry_init(local_start.shape[0], freqs.shape[0], device)
-    prev = torch.as_tensor(local_start, device=device)
+    prev = torch.as_tensor(local_start, device=device).contiguous()
     center_rows = []
     n_segments = 0
     segments = iter_trace_segments(
@@ -432,16 +427,10 @@ def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
         if collect_here:
             # a copy, so the segment's record block is not kept alive
             center_rows.append(recs[:, :, p_local].clone())
-        for rec in recs:
-            s = rec[3]
-            valid, dsv, prev = record_step(
-                rec[0:3].T, s, prev, scale,
-                torch.isfinite(rec[7]) if theta_los else None)
-            sarea = s * area32 if s_on else torch.zeros_like(s)
-            theta_k = (torch.arccos(torch.clamp(rec[7], -1.0, 1.0))
-                       if theta_los else None)
-            carry = update(carry, dsv, rec[5], rec[4], rec[6], valid, sarea,
-                           theta_k)
+        carry, prev = transfer_fold.fold_records(
+            recs, carry, prev, freqs, pixel_area_cm2, cfg.theta_deg,
+            cfg.mechanism, gaunt=cfg.gaunt, s_on=cfg.s_input_on,
+            theta_los=theta_los)
         clock.add("transfer", t1, clock.mark())
     flux_o, flux_x = carry[0], carry[1]
     rows = torch.cat(center_rows) if collect_here else None

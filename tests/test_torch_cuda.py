@@ -1,5 +1,5 @@
-"""Trace-segment kernel tests that need a CUDA card; each skips without
-one. The file imports no jax, so it runs on a machine with PyTorch for
+"""Kernel tests that need a CUDA card (the trace segment and the transfer
+folds); each skips without one. The file imports no jax, so it runs on a machine with PyTorch for
 CUDA alone (the repository's conftest.py imports jax, hence --noconftest):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -9,8 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+from raytracinggrff_tpu_torch.grff.transfer import transfer_carry_init
 from raytracinggrff_tpu_torch.grids import UniformGrid
+from raytracinggrff_tpu_torch.ops import _build
 from raytracinggrff_tpu_torch.ops import trace_segment as ts
+from raytracinggrff_tpu_torch.ops import transfer_fold as tf
 from raytracinggrff_tpu_torch.ops.trace_segment import (trace_segment,
                                                         trace_segment_plain)
 from raytracinggrff_tpu_torch.tracer import init_k_vectors
@@ -39,8 +42,9 @@ def exact(request, cuda, monkeypatch):
     (cos theta is computed in another order); the FMA build's are held to
     ROW_TOL."""
     if request.param == "fma":
-        lib = ts.load_library(ts.build_library(ts.FMA_NVCC_FLAGS)[0])
-        monkeypatch.setattr(ts, "_library", lambda: lib)
+        lib = _build.load_library(
+            _build.build_library(_build.FMA_NVCC_FLAGS)[0])
+        monkeypatch.setattr(_build, "library", lambda: lib)
     return request.param == "shipped"
 
 
@@ -204,3 +208,180 @@ def test_wrapper_refuses_mixed_devices(cuda):
     tcube, scube, state, grid = _inputs(cuda, False, n_rays=8, n=9)
     with pytest.raises(ValueError, match="is on"):
         trace_segment(tcube.cpu(), scube, state, grid, 5e-3, 1, 10, 1)
+
+
+# The transfer folds against their plain versions on the card. Both run the
+# same float32 ops in the same order (the kernel built with -fmad=false);
+# the gyroresonance harmonic sum alone is added in another order by torch's
+# reduction, so flux and finite tau are held to rtol 1e-5, or 1e-4 with
+# gyroresonance, and the infinite-tau (evanescent) and zero-flux sets must
+# be equal.
+AREA = (0.045 * 6.957e10) ** 2
+
+
+def _fold_records(device, n_rays=300, n_rec=24, seed=0):
+    """Records of rays walking from `start` with every kind of invalid
+    record (NaN positions, S <= 0, cos theta NaN, ne NaN) and overdense
+    voxels; B 0-15 G so that gyroresonance layers lie at 75-89 MHz."""
+    rng = np.random.default_rng(seed)
+    start = rng.uniform(-1.0, 1.0, (n_rays, 3)).astype(np.float32)
+    pos = start[None] + np.cumsum(rng.normal(0.0, 0.01, (n_rec, n_rays, 3)),
+                                  axis=0)
+    rec = np.empty((n_rec, 8, n_rays))
+    rec[:, 0:3] = pos.transpose(0, 2, 1)
+    rec[:, 3] = rng.uniform(0.2, 2.0, (n_rec, n_rays))
+    rec[:, 4] = 10 ** rng.uniform(5.0, 7.6, (n_rec, n_rays))
+    rec[:, 5] = 10 ** rng.uniform(4.0, 6.5, (n_rec, n_rays))
+    rec[:, 6] = rng.uniform(0.0, 15.0, (n_rec, n_rays))
+    rec[:, 7] = rng.uniform(-1.0, 1.0, (n_rec, n_rays))
+    u = rng.random((n_rec, n_rays))
+    rec[:, 7][u < 0.05] = 0.0
+    rec[:, 3][(u > 0.05) & (u < 0.1)] = 0.0
+    rec[:, 7][(u > 0.1) & (u < 0.14)] = np.nan
+    rec[:, 4][(u > 0.14) & (u < 0.16)] = np.nan
+    rec[:, 4][(u > 0.16) & (u < 0.18)] = 3e8
+    rec[10:, 0:3, :5] = np.nan
+    t = {k: torch.as_tensor(a, dtype=torch.float32, device=device)
+         for k, a in (("recs", rec), ("start", start))}
+    freqs = torch.tensor([75e6, 84.1e6, 94.4e6], device=device)
+    return t["recs"], t["start"], freqs
+
+
+def _assert_folds_match(out, ref, mechanism):
+    rtol = 1e-4 if mechanism & 2 else 1e-5
+    for a, b in zip(out, ref):
+        assert torch.equal(torch.isinf(a), torch.isinf(b))
+        assert torch.equal(a == 0, b == 0)
+        fin = torch.isfinite(b)
+        torch.testing.assert_close(a[fin], b[fin], rtol=rtol, atol=1e-30)
+
+
+@pytest.mark.parametrize("gaunt", ["dulk", "exact"])
+@pytest.mark.parametrize("theta_los", [False, True])
+@pytest.mark.parametrize("mechanism", [1, 5, 7])
+def test_fold_records_kernel_matches_plain(cuda, mechanism, theta_los,
+                                           gaunt):
+    recs, start, freqs = _fold_records(cuda)
+    carry = transfer_carry_init(start.shape[0], 3, cuda)
+    kw = dict(theta_deg=70.0, mechanism=mechanism, gaunt=gaunt, s_on=True,
+              theta_los=theta_los)
+    launches = tf.LAUNCHES["records"]
+    out, prev = tf.fold_records(recs, carry, start, freqs, AREA, **kw)
+    ref, prev_ref = tf.fold_records_plain(recs, carry, start, freqs, AREA,
+                                          **kw)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES["records"] == launches + 1
+    _assert_folds_match(out, ref, mechanism)
+    torch.testing.assert_close(prev, prev_ref, rtol=0, atol=0)
+    assert torch.isinf(ref[2]).any() and (ref[0] > 0).float().mean() > 0.3
+
+
+def _fold_voxels(device, nz=20, n_pix=300, seed=1):
+    rng = np.random.default_rng(seed)
+    shape = (nz, n_pix)
+    f32 = np.float32
+    v = dict(ds=10 ** rng.uniform(8.0, 10.0, shape),
+             te=10 ** rng.uniform(4.0, 6.5, shape),
+             ne=10 ** rng.uniform(5.0, 7.6, shape),
+             b=rng.uniform(0.0, 15.0, shape))
+    u = rng.random(shape)
+    v["ne"][(u > 0.1) & (u < 0.13)] = np.nan
+    v["ne"][(u > 0.15) & (u < 0.18)] = 3e8
+    v["ds"][(u > 0.13) & (u < 0.15)] = 0.0
+    theta = rng.uniform(2.0, 178.0, shape)
+    theta[(u > 0.18) & (u < 0.22)] = 90.0
+    sarea = np.where(rng.random(shape) < 0.5,
+                     rng.uniform(0.2, 3.0, shape) * AREA, 0.0)
+    out = [torch.as_tensor(v[k].astype(f32), device=device)
+           for k in ("ds", "te", "ne", "b")]
+    out.append(torch.as_tensor(u > 0.1, device=device))
+    extra = dict(
+        sarea=torch.as_tensor(sarea.astype(f32), device=device),
+        theta=torch.deg2rad(torch.as_tensor(theta.astype(f32),
+                                            device=device)),
+        mech=torch.as_tensor(rng.choice(np.int32([0, 1, 4, 5, 7]), shape),
+                             device=device))
+    return out, extra
+
+
+@pytest.mark.parametrize("per_voxel", [False, True])
+@pytest.mark.parametrize("mechanism", [5, 7])
+def test_fold_voxels_kernel_matches_plain(cuda, mechanism, per_voxel):
+    """A fixed theta without source areas, or per-voxel theta, source areas
+    and mechanism masks."""
+    vox, extra = _fold_voxels(cuda)
+    freqs = torch.tensor([150e6, 300e6], device=cuda)
+    kw = dict(mechanism=mechanism, gaunt="exact")
+    if per_voxel:
+        kw.update(extra, theta_deg=-1.0)
+        kw["mech"] = kw["mech"] & mechanism
+    else:
+        kw.update(theta_deg=60.0)
+    launches = tf.LAUNCHES["voxels"]
+    out = tf.fold_voxels(*vox, freqs, AREA, **kw)
+    ref = tf.fold_voxels_plain(*vox, freqs, AREA, **kw)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES["voxels"] == launches + 1
+    _assert_folds_match(out, ref, mechanism)
+
+
+@pytest.mark.parametrize("entry", ["records", "voxels"])
+def test_fold_kernel_continues_across_calls(cuda, entry):
+    """Two launches, the second from the first's carry, equal one launch
+    over both halves bit for bit."""
+    if entry == "records":
+        recs, start, freqs = _fold_records(cuda)
+        carry = transfer_carry_init(start.shape[0], 3, cuda)
+        kw = dict(mechanism=7, s_on=True, theta_los=True)
+        whole, prev_w = tf.fold_records(recs, carry, start, freqs, AREA, **kw)
+        half, prev_h = tf.fold_records(recs[:9].contiguous(), carry, start,
+                                       freqs, AREA, **kw)
+        split, prev_s = tf.fold_records(recs[9:].contiguous(), half, prev_h,
+                                        freqs, AREA, **kw)
+        torch.testing.assert_close(prev_s, prev_w, rtol=0, atol=0)
+    else:
+        vox, extra = _fold_voxels(cuda)
+        freqs = torch.tensor([150e6, 300e6], device=cuda)
+        kw = dict(extra, theta_deg=-1.0, mechanism=7)
+        whole = tf.fold_voxels(*vox, freqs, AREA, **kw)
+
+        def part(sl):
+            return ([a[sl].contiguous() for a in vox],
+                    {k: a[sl].contiguous() for k, a in extra.items()})
+
+        args, ex = part(slice(0, 7))
+        half = tf.fold_voxels(*args, freqs, AREA, **dict(kw, **ex))
+        args, ex = part(slice(7, None))
+        split = tf.fold_voxels(*args, freqs, AREA, carry=half,
+                               **dict(kw, **ex))
+    for a, b in zip(split, whole):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_fold_wrappers_refuse_mixed_devices(cuda):
+    recs, start, freqs = _fold_records(cuda, n_rays=8, n_rec=2)
+    carry = transfer_carry_init(8, 3, cuda)
+    with pytest.raises(ValueError, match="is on"):
+        tf.fold_records(recs, carry, start.cpu(), freqs, AREA)
+    vox, _ = _fold_voxels(cuda, nz=2, n_pix=8)
+    with pytest.raises(ValueError, match="is on"):
+        tf.fold_voxels(*vox[:4], vox[4].cpu(), freqs, AREA)
+
+
+def test_fold_wrappers_launch_nothing_for_no_rays(cuda):
+    """With no rays (an empty ray shard) each wrapper hands back the carry
+    and positions it was given and counts no launch; rays without a
+    frequency are refused."""
+    recs, start, freqs = _fold_records(cuda, n_rays=8, n_rec=2)
+    empty = transfer_carry_init(0, 3, cuda)
+    counts = dict(tf.LAUNCHES)
+    out, prev = tf.fold_records(recs[:, :, :0].contiguous(), empty,
+                                start[:0], freqs, AREA)
+    assert all(a is b for a, b in zip(out, empty)) and prev.shape == (0, 3)
+    vox, _ = _fold_voxels(cuda, nz=2, n_pix=8)
+    out = tf.fold_voxels(*(a[:, :0].contiguous() for a in vox), freqs, AREA)
+    assert [tuple(a.shape) for a in out] == [(0, 3)] * 4
+    assert tf.LAUNCHES == counts
+    with pytest.raises(ValueError, match="at least one frequency"):
+        tf.fold_records(recs, transfer_carry_init(8, 0, cuda), start,
+                        freqs[:0], AREA)

@@ -295,9 +295,9 @@ def test_exact_build_only_adds_fmad_false_and_no_build_loosens_ieee():
     bit. The FMA build kept for measurement (FMA_NVCC_FLAGS) differs from
     it only by -fmad=false, and neither build loosens IEEE division,
     square root or denormals."""
-    from raytracinggrff_tpu_torch.ops.trace_segment import (FMA_NVCC_FLAGS,
-                                                            NVCC_FLAGS,
-                                                            build_library)
+    from raytracinggrff_tpu_torch.ops._build import (FMA_NVCC_FLAGS,
+                                                     NVCC_FLAGS,
+                                                     build_library)
     assert NVCC_FLAGS == FMA_NVCC_FLAGS + ("-fmad=false",)
     assert build_library.__defaults__ == (NVCC_FLAGS,)
     loose = {"--use_fast_math", "-use_fast_math", "-ftz=true",
