@@ -78,10 +78,15 @@ Phases:
  17. the transfer folds (csrc/transfer_fold.cu): (a) the record fold on
      the canonical scene's first segment (65,536 rays x 64 records, nfreq
      3, S input on, B 5-20 G) through the kernel and the plain version,
-     mechanisms 5 and 7 at a fixed theta and with theta_mode 'los': flux
-     max rel 1e-4 over entries above 1e-30 and the evanescent (tau = inf)
-     sets equal on >= 99.9% of (ray, frequency) entries, with each fold's
-     time, its plain time and its bound; (b) the production map and the
+     mechanisms 1, 5 and 7 at a fixed theta and with theta_mode 'los',
+     mechanism 5 at a fixed theta at Nf 1, 5 and 9, and mechanism 7 at
+     s_max 200 (above the former cap of 128 harmonics); (a') the record
+     fold at the sweep's size (16,384 rays x 64 records, Nf 1, mechanism
+     5). Each fold is held to its plain version (hold_fold): carries
+     equal (torch.equal) without gyroresonance, flux max rel 1e-4 over
+     entries above 1e-30 with it, and the evanescent (tau = inf) sets
+     equal on every (ray, frequency) entry, with each fold's time, its
+     plain time and its bound; (b) the production map and the
      gyroresonance map of phase 7 with their transfer through the kernel
      and through the plain fold: rel T_b 5e-3 and DV_BAR_FIXED, or
      DV_BAR_GR; (c) the LOS chain's synthetic_ff (phase 6's size) through
@@ -194,6 +199,28 @@ def cuda_ms(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps=20):
+    """Mean device time in ms of fn()'s launches over reps runs, by CUDA
+    events, with the launches queued behind a 25 ms device sleep
+    (torch.cuda._sleep) so that they run back to back: the kernels' own
+    time, without the host's time to launch them, which cuda_ms includes
+    where it is the longer. The median of 5."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(5):
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
 
 
 def record_agreement(rec_a, rec_b):
@@ -1408,16 +1435,16 @@ def phase_series(tmp, device="cuda", **overrides):
     return out
 
 
-def fold_scene():
-    """The canonical scene's first segment (65,536 rays x 64 records,
-    phase 3) traced with a B-vector field, 10x the bundle scene's (|B| of
-    order 10 G, so that gyroresonance layers at 75-89 MHz lie in the cube,
-    and row 7 holds cos theta(B, k)). Returns the records and ray
-    starts."""
+def fold_scene(n_pix=256):
+    """The canonical scene's first segment (n_pix^2 rays x 64 records; at
+    256, 65,536 rays, phase 3; at 128, the sweep's 16,384) traced with a
+    B-vector field, 10x the bundle scene's (|B| of order 10 G, so that
+    gyroresonance layers at 75-89 MHz lie in the cube, and row 7 holds cos
+    theta(B, k)). Returns the records and ray starts."""
     from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
     from raytracinggrff_tpu_torch.tracer_segments import (initial_state,
                                                           prepare_trace_inputs)
-    grid, f, start, kdir = canonical_scene()
+    grid, f, start, kdir = canonical_scene(n_pix)
     x, y, z = (torch.as_tensor(a.astype(np.float32), device=f["wpe"].device)
                for a in np.meshgrid(*grid.axes(), indexing="ij"))
     bvec = (10.0 * (1.0 + 0.2 * x), 10.0 * (0.5 * y - 0.3),
@@ -1444,7 +1471,7 @@ def fold_flops(nf, mechanism, gaunt, s_max=30):
 
 
 def fold_records_bound(recs, prev, nf, mechanism, gaunt="dulk", s_on=True,
-                       theta_los=False):
+                       theta_los=False, s_max=30):
     """Least time for one record fold from the last valid positions
     `prev`. Operations: those of the records the fold takes (valid by
     sampler.record_step, with finite fields and ds > 0; it skips the
@@ -1465,7 +1492,7 @@ def fold_records_bound(recs, prev, nf, mechanism, gaunt="dulk", s_on=True,
         n_step += int(valid.sum())
         n_valid += int(taken.sum())
     per_rec = FOLD_FLOPS_RECORD + int(s_on) + 3 * int(theta_los)
-    ops = n_valid * (per_rec + fold_flops(nf, mechanism, gaunt))
+    ops = n_valid * (per_rec + fold_flops(nf, mechanism, gaunt, s_max))
     rps, n = recs.shape[0], recs.shape[2]
     nbytes = 4 * ((4 + int(theta_los)) * rps * n + 3 * n_step
                   + 2 * 4 * n * nf + 2 * 3 * n + nf)
@@ -1496,8 +1523,9 @@ def fold_voxels_bound(ds, te, ne, b, valid, freqs, area, sarea=None,
 def fold_agreement(out, ref):
     """Kernel carry `out` against plain `ref`: the max relative flux
     difference over entries above 1e-30, the max absolute flux difference,
-    and the (ray, frequency) entries whose evanescent state (tau = inf) is
-    the same in both modes, as (count, total)."""
+    the (ray, frequency) entries whose evanescent state (tau = inf) is
+    the same in both modes, as (count, total), and whether the four
+    carries are equal (torch.equal)."""
     rel = absd = 0.0
     for a, b in zip(out[:2], ref[:2]):
         sel = torch.isfinite(b) & (b.abs() > 1e-30)
@@ -1506,7 +1534,38 @@ def fold_agreement(out, ref):
         absd = max(absd, float(d[torch.isfinite(d)].max()))
     same = ((torch.isinf(out[2]) == torch.isinf(ref[2]))
             & (torch.isinf(out[3]) == torch.isinf(ref[3])))
-    return rel, absd, (int(same.sum()), same.numel())
+    equal = all(torch.equal(a, b) for a, b in zip(out, ref))
+    return rel, absd, (int(same.sum()), same.numel()), equal
+
+
+def hold_fold(tag, what, out, ref, mechanism, times, bound):
+    """Print and hold one fold against its plain version: every evanescent
+    set equal, and the carries equal (torch.equal) without gyroresonance
+    (mechanism bit 2), or flux max rel 1e-4 with it. times: (kernel ms by
+    cuda_ms, by device_ms, plain ms); bound: (ms, "bytes" or "operations",
+    voxels taken). Returns (max rel, max |diff|)."""
+    rel, absd, (same, total), equal = fold_agreement(out, ref)
+    ms, dev_ms, plain_ms = times
+    bound_ms, bound_by, n_valid = bound
+    say(f"[17] {what} ({n_valid} valid): kernel vs plain, carries equal "
+        f"{equal}, flux max rel {rel:.3g}, max |diff| {absd:.3g} SFU; "
+        f"evanescent sets equal on {same} of {total} entries; kernel "
+        f"{ms:.4f} ms ({dev_ms:.4f} ms on the device alone), plain "
+        f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{bound_ms / ms:.4f} of it ({bound_ms / dev_ms:.4f} of the "
+        f"device time)")
+    assert same == total, (tag, same, total)
+    assert equal if not mechanism & 2 else rel <= 1e-4, (tag, rel, equal)
+    return rel, absd
+
+
+def time_fold(fold, plain, reps=20):
+    """(kernel result, plain result, (kernel ms by cuda_ms, by device_ms,
+    plain ms)) of the calls fold() and plain()."""
+    res, ref = fold(), plain()
+    times = (cuda_ms(fold, reps=reps), device_ms(fold, reps=reps),
+             cuda_ms(plain, reps=1))
+    return res, ref, times
 
 
 @contextlib.contextmanager
@@ -1528,21 +1587,72 @@ def captured_voxel_folds():
         tf.fold_voxels = fold
 
 
-def phase_fold(out, tmp, los6, device="cuda", n_pix=256, n_steps=5000,
-               grid_n=128):
-    """Phase 17: the transfer folds against their plain versions. (a) The
-    record fold alone on fold_scene at nfreq 3 with S input (the main
-    path's settings), mechanisms 5 and 7, fixed theta and theta_mode
-    'los'; (b) the production map and phase 7's gyroresonance map with
-    their transfer through the kernel and through the plain fold; (c) the
-    LOS chain's synthetic_ff on phase 6's LOS data `los6` through the
-    voxel fold and the plain one, and that fold alone. Fills out["fold"]
-    (the main path's fold, mechanism 5 at a fixed theta) and
-    out["voxel_fold"] for the kernels line. The maps are SLICE's with
-    `n_pix`, `n_steps` and `grid_n`."""
+# phase 17's fold on the main path's settings: its kernels-line entry
+MAIN_FOLD = "(a) record fold, mechanism 5, fixed theta"
+
+
+def fold_cases(n_pix=256, sweep_pix=128):
+    """Phase 17's record folds alone, {name: ("records", args, kw)} with
+    args fold_records' (recs, carry, prev, freqs, area): (a) on
+    fold_scene(n_pix) at nfreq 3 with S input (the main path's settings),
+    mechanisms 1, 5 and 7, fixed theta and theta_mode 'los'; mechanism 5
+    at fixed theta with Nf 1, 5 and 9; mechanism 7 at s_max 200 with
+    theta_mode 'los'; (a') at the sweep's size, fold_scene(sweep_pix) at
+    Nf 1, mechanism 5, fixed theta."""
     from raytracinggrff_tpu_torch.constants import R_SUN_CM
     from raytracinggrff_tpu_torch.grff.transfer import (log_spaced_freqs,
                                                         transfer_carry_init)
+    cases = {}
+    for tag, pix in (("(a)", n_pix), ("(a')", sweep_pix)):
+        recs, start = fold_scene(pix)
+        n = recs.shape[2]
+        area = ((2 * 1.44) / round(n ** 0.5) * R_SUN_CM) ** 2
+        prev = torch.as_tensor(start, device=recs.device)
+
+        def case(nf, **kw):
+            freqs = torch.as_tensor(log_spaced_freqs(75e6, nf, 0.05),
+                                    dtype=torch.float32, device=recs.device)
+            args = (recs, transfer_carry_init(n, nf, recs.device), prev,
+                    freqs, area)
+            return "records", args, dict(theta_deg=90.0, s_on=True, **kw)
+
+        if tag == "(a')":
+            cases["(a') record fold at the sweep's size, mechanism 5, fixed "
+                  "theta"] = case(1, mechanism=5, theta_los=False)
+            continue
+        for mechanism in (1, 5, 7):
+            for theta_los in (False, True):
+                what = "theta_mode 'los'" if theta_los else "fixed theta"
+                cases[f"(a) record fold, mechanism {mechanism}, {what}"] = \
+                    case(3, mechanism=mechanism, theta_los=theta_los)
+        for nf in (1, 5, 9):
+            cases[f"(a) record fold, mechanism 5, fixed theta, Nf {nf}"] = \
+                case(nf, mechanism=5, theta_los=False)
+        cases["(a) record fold, mechanism 7 at s_max 200, theta_mode "
+              "'los'"] = case(3, mechanism=7, s_max=200, theta_los=True)
+    return cases
+
+
+def los_chain_fold(los, device="cuda"):
+    """The LOS chain's synthetic_ff on LOS data `los` (450 MHz, 4
+    frequencies): its result and the (args, kw) of its one fold_voxels
+    call."""
+    from raytracinggrff_tpu_torch.pipeline import synthetic_ff
+    with captured_voxel_folds() as seen:
+        em = synthetic_ff(los, 450e6, 4, 0.1, verbose=False, device=device)
+    return em, seen[0]
+
+
+def phase_fold(out, tmp, los6, device="cuda", n_pix=256, n_steps=5000,
+               grid_n=128, sweep_pix=128):
+    """Phase 17: the transfer folds against their plain versions. (a) and
+    (a'): the record folds of fold_cases alone; (b) the production map and
+    phase 7's gyroresonance map with their transfer through the kernel and
+    through the plain fold; (c) the LOS chain's synthetic_ff on phase 6's
+    LOS data `los6` through the voxel fold and the plain one, and that fold
+    alone. Every fold alone is held by hold_fold. Fills out["fold"]
+    (MAIN_FOLD) and out["voxel_fold"] for the kernels line. The maps are
+    SLICE's with `n_pix`, `n_steps` and `grid_n`."""
     from raytracinggrff_tpu_torch.grids import UniformGrid
     from raytracinggrff_tpu_torch.mas.model import (MASModel,
                                                     synthetic_mas_model)
@@ -1551,42 +1661,29 @@ def phase_fold(out, tmp, los6, device="cuda", n_pix=256, n_steps=5000,
                                                    prepare_cubes,
                                                    run_ray_tracing_emission,
                                                    synthetic_ff)
-    recs, start = fold_scene()
-    n = recs.shape[2]
-    freqs = torch.as_tensor(log_spaced_freqs(75e6, 3, 0.05),
-                            dtype=torch.float32, device=recs.device)
-    area = ((2 * 1.44) / round(n ** 0.5) * R_SUN_CM) ** 2
-    carry0 = transfer_carry_init(n, 3, recs.device)
-    prev = torch.as_tensor(start, device=recs.device)
-    for mechanism in (5, 7):
-        for theta_los in (False, True):
-            kw = dict(theta_deg=90.0, mechanism=mechanism, s_on=True,
-                      theta_los=theta_los)
-            res, _ = tf.fold_records(recs, carry0, prev, freqs, area, **kw)
-            ref, _ = tf.fold_records_plain(recs, carry0, prev, freqs, area,
-                                           **kw)
-            rel, absd, (same, total) = fold_agreement(res, ref)
-            ms = cuda_ms(lambda: tf.fold_records(recs, carry0, prev, freqs,
-                                                 area, **kw), reps=20)
-            plain_ms = cuda_ms(lambda: tf.fold_records_plain(
-                recs, carry0, prev, freqs, area, **kw), reps=1)
-            bound_ms, bound_by, n_valid = fold_records_bound(
-                recs, prev, 3, mechanism, s_on=True, theta_los=theta_los)
-            what = "theta_mode 'los'" if theta_los else "fixed theta"
-            say(f"[17] (a) record fold, mechanism {mechanism}, {what} "
-                f"({n} rays x {recs.shape[0]} records x 3 frequencies, "
-                f"{n_valid} valid records): kernel vs plain, flux max rel "
-                f"{rel:.3g} (bar 1e-4), max |diff| {absd:.3g} SFU; "
-                f"evanescent sets equal on {same} of {total} entries "
-                f"({total - same} differ; bar 0.999 of them); kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.4f} of it")
-            assert rel <= 1e-4 and same >= 0.999 * total, (rel, same, total)
-            if mechanism == 5 and not theta_los:
-                out["fold"] = dict(ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bound_ms, bound_by=bound_by,
-                                   max_abs_err=absd)
-    del recs, carry0
+
+    def fold_case(name, args, kw):
+        recs, freqs = args[0], args[3]
+        nf, n, mech = freqs.shape[0], recs.shape[2], kw["mechanism"]
+        res, ref, times = time_fold(
+            lambda: tf.fold_records(*args, **kw)[0],
+            lambda: tf.fold_records_plain(*args, **kw)[0])
+        bound = fold_records_bound(recs, args[2], nf, mech, s_on=True,
+                                   theta_los=kw["theta_los"],
+                                   s_max=kw.get("s_max", 30))
+        _, absd = hold_fold(name, f"{name} ({n} rays x {recs.shape[0]} "
+                            f"records x {nf} frequencies, group "
+                            f"{tf.group_size(nf, n)})", res, ref, mech,
+                            times, bound)
+        return dict(ms=times[0], plain_ms=times[2], bound_ms=bound[0],
+                    bound_by=bound[1], max_abs_err=absd)
+
+    cases = fold_cases(sweep_pix=sweep_pix)
+    for name, (_, args, kw) in cases.items():
+        case = fold_case(name, args, kw)
+        if name == MAIN_FOLD:
+            out["fold"] = case
+    del cases
 
     model = synthetic_mas_model(Path(tmp) / "corona_fold", timestep=2)
     grid = UniformGrid.cube(3.0, grid_n)
@@ -1620,37 +1717,27 @@ def phase_fold(out, tmp, los6, device="cuda", n_pix=256, n_steps=5000,
     del cubes, gr_cubes
 
     reset_counts()
-    with captured_voxel_folds() as seen:
-        em_k = synthetic_ff(los6["los"], 450e6, 4, 0.1, verbose=False,
-                            device=device)
+    em_k, (args, kw) = los_chain_fold(los6["los"], device)
     check_folds("17", "voxels", 1, device)
     with plain_folds():
-        em_p = synthetic_ff(los6["los"], 450e6, 4, 0.1, verbose=False,
-                            device=device)
+        em_p, _ = los_chain_fold(los6["los"], device)
     for key in ("emission_cube", "emission_polVI_cube"):
         np.testing.assert_array_equal(em_k[key], los6["map"][key])
     n_pix = em_k["emission_cube"].shape[0]
     hold_maps("17", f"(c) LOS chain synthetic_ff {n_pix}^2, voxel fold vs "
               f"the plain fold", em_p, em_k, DV_BAR_FIXED,
               disk_mask(n_pix, 1.44))
-    args, kw = seen[0]
-    res = tf.fold_voxels(*args, **kw)
-    ref = tf.fold_voxels_plain(*args, **kw)
-    rel, absd, (same, total) = fold_agreement(res, ref)
-    ms = cuda_ms(lambda: tf.fold_voxels(*args, **kw), reps=20)
-    plain_ms = cuda_ms(lambda: tf.fold_voxels_plain(*args, **kw), reps=1)
-    bound_ms, bound_by, n_valid = fold_voxels_bound(*args, **kw)
+    res, ref, times = time_fold(lambda: tf.fold_voxels(*args, **kw),
+                                lambda: tf.fold_voxels_plain(*args, **kw))
+    bound = fold_voxels_bound(*args, **kw)
     ds, nf, mechanism = args[0], args[5].shape[0], args[11]
-    say(f"[17] (c) voxel fold alone ({ds.shape[0]} voxels x {ds.shape[1]} "
-        f"pixels x {nf} frequencies, mechanism {mechanism}, {n_valid} valid "
-        f"voxels): kernel vs plain, flux max rel {rel:.3g}, max |diff| "
-        f"{absd:.3g} SFU, evanescent sets equal on {same} of {total}; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.4f} of it")
-    assert rel <= 1e-4 and same >= 0.999 * total, (rel, same, total)
-    out["voxel_fold"] = dict(launches=los6["fold_launches"], ms=ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, max_abs_err=absd)
+    _, absd = hold_fold("(c)", f"(c) voxel fold alone ({ds.shape[0]} voxels "
+                        f"x {ds.shape[1]} pixels x {nf} frequencies, "
+                        f"mechanism {mechanism})", res, ref, mechanism,
+                        times, bound)
+    out["voxel_fold"] = dict(launches=los6["fold_launches"], ms=times[0],
+                             plain_ms=times[2], bound_ms=bound[0],
+                             bound_by=bound[1], max_abs_err=absd)
 
 
 def main():

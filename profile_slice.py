@@ -49,6 +49,20 @@ pass/fail checks of chip_smoke.py.
      (n, 1) and (n/2, 2), the latter at nfreq 4, and dryrun_multichip(n)),
      each rank's stages and the straggler factor, against one process;
      on one card, phase 12 itself (2 and 4 ranks sharing it over gloo).
+  8. fold: the transfer folds alone (chip_smoke.fold_cases, the record
+     folds of chip_smoke.py phase 17 (a) and (a'), and the LOS chain's
+     voxel fold, 400 voxels x 16,384 pixels x 4 frequencies), each the
+     median of 5 timings of 20 wrapper calls by CUDA events (which, for a
+     kernel of tens of microseconds, include the host's time to launch it)
+     and the kernel's device time (the same launches queued behind a
+     device sleep), in one process per tree: the tree of the parent
+     commit, unpacked by `git archive` into PARENT_TREE (default
+     _archive/parent; skipped if absent), and this one, in the turns
+     parent, this, this, parent. A case a tree's wrapper refuses is
+     reported as refused. In this tree's first run, also every case's
+     device time at each group size G (1, 2, 4, 8 lanes a ray), each held
+     equal to the shipped G's carry (torch.equal; rtol 1e-6 with
+     gyroresonance).
 The card's name and power limit are printed first and last. Without a
 CUDA device it exits 1.
 """
@@ -57,6 +71,7 @@ from __future__ import annotations
 
 import collections
 import json
+import os
 import re
 import subprocess
 import sys
@@ -74,7 +89,9 @@ from chip_smoke import (DV_BAR_GR, SLICE, build_all, canonical_scene,
 
 STAGES = ("wall", "resample", "trace", "transfer", "finish")
 PHASES = ("spread", "profile", "cache", "floor", "s_mode", "sweep",
-          "mesh")
+          "mesh", "fold")
+# phase fold: the parent tree's directory
+PARENT_TREE = Path(os.environ.get("PARENT_TREE", "_archive/parent"))
 # phase cache: flags added to FMA_NVCC_FLAGS for each build; "fma" adds
 # none, and "shipped" is NVCC_FLAGS (-fmad=false)
 CACHE_VARIANTS = {
@@ -405,6 +422,133 @@ def phase_mesh(model, cfg):
             chip_smoke.phase_mesh(tmp, one)
 
 
+def fold_inputs():
+    """The fold cases' inputs on the card: chip_smoke.fold_cases and the
+    LOS chain's voxel fold, {name: (fold, args, kw)}, fold 'records' or
+    'voxels'."""
+    cases = chip_smoke.fold_cases()
+    with tempfile.TemporaryDirectory() as tmp:
+        los = chip_smoke.phase_los(tmp)["los"]
+        _, call = chip_smoke.los_chain_fold(los)
+    cases["(c) LOS chain voxel fold"] = ("voxels", *call)
+    return cases
+
+
+def fold_times(variants):
+    """Each fold case in this process's package: the median ms of 5
+    timings of 20 wrapper calls by CUDA events ("shipped"), which at the
+    sweep's size include the host's time to launch, and
+    chip_smoke.device_ms ("device"), or None for both where the wrapper
+    refuses the case; with `variants`, also the device time at every group
+    size, each variant's carry held to the shipped one's. Returns
+    {case: {variant: ms}}."""
+    from raytracinggrff_tpu_torch.ops import transfer_fold as tf
+    out = {}
+    for name, (kind, args, kw) in fold_inputs().items():
+        fold = getattr(tf, f"fold_{kind}")
+
+        def run():
+            res = fold(*args, **kw)
+            return res[0] if kind == "records" else res
+
+        try:
+            ref = run()
+        except ValueError as err:
+            say(f"[fold] {name}: refused ({err})")
+            out[name] = {"shipped": None, "device": None}
+            continue
+        out[name] = {"shipped": float(np.median([cuda_ms(run, reps=20)
+                                                 for _ in range(5)])),
+                     "device": chip_smoke.device_ms(run)}
+        if not variants:
+            continue
+        gr = (kw["mechanism"] if kind == "records" else args[11]) & 2
+        shipped = tf.group_size
+        for g in (1, 2, 4, 8):
+            tf.group_size = lambda *_, g=g: g
+            try:
+                for a, b in zip(run(), ref):
+                    if gr:
+                        torch.testing.assert_close(a, b, rtol=1e-6, atol=0.0)
+                    else:
+                        assert torch.equal(a, b), (name, g)
+                out[name][f"G{g}"] = chip_smoke.device_ms(run)
+            finally:
+                tf.group_size = shipped
+    return out
+
+
+# run from a tree's directory: that tree's package, this tree's scripts
+FOLD_CHILD = """\
+import importlib.util, json, sys
+from pathlib import Path
+import torch
+sys.path.insert(0, ".")
+for name in ("chip_smoke", "profile_slice"):
+    spec = importlib.util.spec_from_file_location(
+        name, Path(sys.argv[1]).parent / f"{name}.py")
+    sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules[name])
+with torch.inference_mode():
+    times = sys.modules["profile_slice"].fold_times(sys.argv[2] == "variants")
+print("FOLD " + json.dumps(times))
+"""
+
+
+def phase_fold():
+    """The fold cases in the parent tree and in this one, in turns, each tree
+    in a process of its own run from that tree, so it imports its own
+    package and builds its own kernels (and this tree's chip_smoke.py and
+    profile_slice.py, which use only the wrappers' common interface)."""
+    here = Path(__file__).resolve().parent
+    trees = [("this", here)]
+    if PARENT_TREE.is_dir():
+        parent = PARENT_TREE.resolve()
+        trees = [("parent", parent), ("this", here), ("this", here),
+                 ("parent", parent)]
+    else:
+        say(f"[fold] no parent tree at {PARENT_TREE}; timing this tree only")
+    runs = collections.defaultdict(list)
+    for turn, (label, tree) in enumerate(trees):
+        variants = label == "this" and turn == 1 or len(trees) == 1
+        proc = subprocess.run(
+            [sys.executable, "-c", FOLD_CHILD, str(Path(__file__).resolve()),
+             "variants" if variants else "shipped"],
+            cwd=tree, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"fold times in {tree} failed:\n"
+                               f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        line = next(ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("FOLD "))
+        times = json.loads(line[5:])
+        runs[label].append(times)
+        say(f"[fold] turn {turn} ({label}, {tree}): " + "; ".join(
+            f"{case} refused" if t["device"] is None else
+            f"{case} {t['shipped']:.4f} ms (device {t['device']:.4f})"
+            for case, t in times.items()))
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    say(f"[fold] SM clock, its maximum and power after the runs: {clocks}")
+    for case in runs["this"][0]:
+        for kind in ("shipped", "device"):
+            this = [r[case][kind] for r in runs["this"]]
+            line = (f"[fold] {case}, {kind}: this tree "
+                    f"{['%.4f' % t for t in this]} ms")
+            par = [r[case][kind] for r in runs["parent"]]
+            if par and None not in par:
+                line += (f", parent {['%.4f' % t for t in par]} ms, this / "
+                         f"parent {np.mean(this) / np.mean(par):.3f}")
+            elif par:
+                line += ", refused by the parent"
+            say(line)
+    for case, times in runs["this"][0].items():
+        say(f"[fold] {case}, device ms by group size: " + ", ".join(
+            f"{v} {t:.4f}" for v, t in times.items()
+            if v not in ("shipped", "device")))
+
+
 def main(argv=None):
     phases = sys.argv[1:] if argv is None else argv
     phases = phases or list(PHASES)
@@ -440,6 +584,8 @@ def main(argv=None):
                 phase_mesh(model, cfg)
         if "floor" in phases:
             phase_floor({name: libs[name] for name in ("shipped", "fma")})
+        if "fold" in phases:
+            phase_fold()
     say(f"nvidia-smi: {smi_line()}")
     return 0
 

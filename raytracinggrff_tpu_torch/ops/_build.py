@@ -6,7 +6,7 @@ with a plain C interface, built at first use into
 raytracinggrff_tpu_torch/_build/ (git-ignored) and named by a hash of the
 sources and flags, then loaded with ctypes. The parameter structs mirror
 those of the sources: _TraceParams for csrc/trace_segment.cu, _FoldParams
-for csrc/transfer_fold.cu.
+for csrc/transfer_fold.cu, whose harmonic tables _harmonic_tables builds.
 """
 
 from __future__ import annotations
@@ -14,11 +14,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import numpy as np
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -35,9 +38,6 @@ FMA_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
                   "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
                   "-Xptxas", "-v")
 NVCC_FLAGS = FMA_NVCC_FLAGS + ("-fmad=false",)
-# harmonics 2..MAX_HARMONIC of the gyroresonance sum (kMaxHarmonic in
-# csrc/transfer_fold.cu)
-MAX_HARMONIC = 128
 
 
 class _TraceParams(ctypes.Structure):
@@ -51,7 +51,7 @@ class _TraceParams(ctypes.Structure):
 
 
 FOLD_INT_FIELDS = ("n_rays", "nf", "n_steps", "mechanism", "gaunt_exact",
-                   "s_max", "theta_per_voxel", "s_on")
+                   "s_max", "theta_per_voxel", "s_on", "group")
 FOLD_FLOAT_FIELDS = (
     "theta0", "area", "inv_au_sq", "r_sun_cm", "src_coef", "fpe_sq", "fb",
     "kappa_ff", "kappa_ff_exact", "gaunt_cl", "gaunt_born", "sqrt3_over_pi",
@@ -62,9 +62,18 @@ FOLD_FLOAT_FIELDS = (
 class _FoldParams(ctypes.Structure):
     """Mirror of struct FoldParams in csrc/transfer_fold.cu."""
     _fields_ = ([(name, ctypes.c_int) for name in FOLD_INT_FIELDS]
-                + [(name, ctypes.c_float) for name in FOLD_FLOAT_FIELDS]
-                + [("log_s2", ctypes.c_float * (MAX_HARMONIC + 1)),
-                   ("lgam", ctypes.c_float * (MAX_HARMONIC + 1))])
+                + [(name, ctypes.c_float) for name in FOLD_FLOAT_FIELDS])
+
+
+def _harmonic_tables(s_max):
+    """The folds' harmonic tables, (2, s_max + 1) float32: row 0 holds
+    2 ln s and row 1 lgamma(s + 1) at column s (0 below s = 2), as the
+    float32 per-harmonic tensors of physics.gyroresonance_kappa round them.
+    An s_max below 1 gives the tables of s_max = 1, which sum no harmonic."""
+    s = range(2, max(int(s_max), 1) + 1)
+    log_s2 = [0.0, 0.0] + [2.0 * math.log(k) for k in s]
+    lgam = [0.0, 0.0] + [math.lgamma(k + 1) for k in s]
+    return np.asarray([log_s2, lgam], np.float32)
 
 
 def _nvcc():
@@ -121,14 +130,14 @@ def load_library(path):
     lib.rgrff_trace_segment.restype = ctypes.c_int
     lib.rgrff_cache_counters.argtypes = []
     lib.rgrff_cache_counters.restype = ctypes.c_int
-    # recs, freqs, carry_in (4), prev_in, carry_out, prev_out, params,
-    # stream
-    lib.rgrff_fold_records.argtypes = [ptr] * 9 + [
+    # recs, freqs, tables, carry_in (4), prev_in, carry_out, prev_out,
+    # params, stream
+    lib.rgrff_fold_records.argtypes = [ptr] * 10 + [
         ctypes.POINTER(_FoldParams), ptr]
     lib.rgrff_fold_records.restype = ctypes.c_int
-    # ds, te, ne, b, valid, sarea, theta, mech, freqs, carry_in (4),
+    # ds, te, ne, b, valid, sarea, theta, mech, freqs, tables, carry_in (4),
     # carry_out, params, stream
-    lib.rgrff_fold_voxels.argtypes = [ptr] * 14 + [
+    lib.rgrff_fold_voxels.argtypes = [ptr] * 15 + [
         ctypes.POINTER(_FoldParams), ptr]
     lib.rgrff_fold_voxels.restype = ctypes.c_int
     lib.rgrff_error_string.argtypes = [ctypes.c_int]

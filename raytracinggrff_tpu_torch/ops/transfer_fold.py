@@ -18,11 +18,13 @@ grff/transfer.make_voxel_update:
     (raytracinggrff_tpu/grff/transfer.py:231-275).
 
 In JAX both are XLA scans. Here each has a hand-written CUDA kernel
-(csrc/transfer_fold.cu, one thread per (ray, frequency), the carry in
-registers across the call) and a plain version that loops over records or
-voxels in torch. Dispatch is by device, as for ops/trace_segment: CPU
-tensors run the plain version; CUDA tensors launch the kernel or raise.
-LAUNCHES counts the kernel launches of each fold ('records', 'voxels').
+(csrc/transfer_fold.cu: a group of group_size(Nf, n_rays) lanes a ray,
+one record and one frequency's carry a lane, that computes each record's
+frequency-free terms once; the carry in registers across the call) and a
+plain version that loops over records or voxels in torch. Dispatch is by
+device, as for ops/trace_segment: CPU tensors run the plain version; CUDA
+tensors launch the kernel or raise. LAUNCHES counts the kernel launches of
+each fold ('records', 'voxels').
 """
 
 from __future__ import annotations
@@ -37,26 +39,45 @@ import torch
 from ..constants import (AU_CM, C_CGS, FB_COEF, FPE_COEF, KB_CGS, M_E_G,
                          R_SUN_CM, SFU2CGS)
 from ..grff import physics
-from ..grff.transfer import (MECH_FREEFREE, MECH_NEUTRALS,
-                             make_voxel_update, transfer_carry_init)
+from ..grff.transfer import (MECH_FREEFREE, MECH_GYRORESONANCE,
+                             MECH_NEUTRALS, make_voxel_update,
+                             transfer_carry_init)
 from ..sampler import record_step
 from . import _build
-from ._build import MAX_HARMONIC, _FoldParams
+from ._build import _FoldParams, _harmonic_tables
 
 RECORD_ROWS = 8
 GAUNTS = ("dulk", "exact")
 # kernel launches of each fold, counted where the kernel is launched
 LAUNCHES = {"records": 0, "voxels": 0}
+# lanes a launch should keep busy: 2,048 warps, about 16 a SM of an H100;
+# with fewer, group_size gives a ray more lanes (csrc/transfer_fold.cu)
+FILL_LANES = 65536
+
+
+def group_size(nf, n_rays):
+    """Lanes a ray in the kernels: the next power of two >= min(nf, 8),
+    doubled (up to 8) while n_rays rays in ceil(nf / G) frequency groups
+    hold fewer than FILL_LANES lanes."""
+    nf, n_rays = int(nf), int(n_rays)
+    g = 1 << max(min(nf, 8) - 1, 0).bit_length()
+    while g < 8 and n_rays * g * -(-nf // g) < FILL_LANES:
+        g *= 2
+    return g
 
 
 @functools.cache
-def _harmonic_tables():
-    """2 ln s and lgamma(s + 1) by s, as the float32 per-harmonic tensors
-    of physics.gyroresonance_kappa round them."""
-    s = range(2, MAX_HARMONIC + 1)
-    log_s2 = [0.0, 0.0] + [2.0 * math.log(k) for k in s]
-    lgam = [0.0, 0.0] + [math.lgamma(k + 1) for k in s]
-    return (np.asarray(log_s2, np.float32), np.asarray(lgam, np.float32))
+def _tables(device, s_max):
+    """_harmonic_tables(s_max) as a tensor on `device`, made once."""
+    return torch.as_tensor(_harmonic_tables(s_max), device=device)
+
+
+def _tables_ptr(device, mechanism, s_max):
+    """The harmonic tables' device pointer for a fold that sums harmonics,
+    else None."""
+    if not int(mechanism) & MECH_GYRORESONANCE:
+        return None
+    return _tables(device, int(s_max)).data_ptr()
 
 
 def _inv(x):
@@ -69,13 +90,14 @@ def fold_params(n_rays, nf, n_steps, pixel_area_cm2, theta_deg, mechanism,
                 s_max, gaunt, theta_per_voxel, s_on=False):
     """The kernel's FoldParams: the call's settings and the physics
     constants of constants.py and grff/physics.py, as the float32 values
-    the plain version's torch ops use."""
+    the plain version's torch ops use, with group_size(nf, n_rays) lanes a
+    ray."""
     inv_au = np.float32(1.0 / AU_CM)
-    log_s2, lgam = _harmonic_tables()
-    p = _FoldParams(
+    return _FoldParams(
         n_rays=n_rays, nf=nf, n_steps=n_steps, mechanism=int(mechanism) & 7,
         gaunt_exact=int(gaunt == "exact"), s_max=int(s_max),
         theta_per_voxel=int(bool(theta_per_voxel)), s_on=int(bool(s_on)),
+        group=group_size(nf, n_rays),
         theta0=float(np.float32(np.deg2rad(theta_deg))),
         area=float(np.float32(pixel_area_cm2)),
         inv_au_sq=float(inv_au * inv_au), r_sun_cm=R_SUN_CM,
@@ -89,9 +111,6 @@ def fold_params(n_rays, nf, n_steps, pixel_area_cm2, theta_deg, mechanism,
         c_cgs=C_CGS, kb=KB_CGS, inv_mec2=_inv(M_E_G * C_CGS * C_CGS),
         gr_pref=math.pi ** 2 / (2.0 * C_CGS),
         sqrt_2pi=math.sqrt(2.0 * math.pi))
-    p.log_s2[:] = log_s2.tolist()
-    p.lgam[:] = lgam.tolist()
-    return p
 
 
 def _check_common(device, named, carry, n, freqs, gaunt):
@@ -122,19 +141,15 @@ def _check_common(device, named, carry, n, freqs, gaunt):
     return nf
 
 
-def _kernel_device(device, n, nf, s_max):
+def _kernel_device(device, n, nf):
     """Refuse what the kernel does not take: its grid's limits, rays
     without a frequency (the grid would be empty and leave the positions
-    unfolded), more harmonics than its table holds, a device other than
-    CUDA."""
+    unfolded), a device other than CUDA."""
     if n >= 2 ** 31 or nf > 65535:
         raise ValueError(f"{n} rays x {nf} frequencies exceed the kernel's "
                          f"grid")
     if n > 0 and nf == 0:
         raise ValueError("the kernel folds at least one frequency")
-    if s_max > MAX_HARMONIC:
-        raise ValueError(f"s_max {s_max} exceeds the kernel's "
-                         f"{MAX_HARMONIC} harmonics")
     if device.type != "cuda":
         raise ValueError(f"no transfer-fold kernel for {device}")
 
@@ -179,7 +194,7 @@ def fold_records(recs, carry, prev, freqs, pixel_area_cm2, theta_deg=90.0,
         return fold_records_plain(recs, carry, prev, freqs, pixel_area_cm2,
                                   theta_deg, mechanism, s_max, gaunt, s_on,
                                   theta_los)
-    _kernel_device(device, n, nf, s_max)
+    _kernel_device(device, n, nf)
     if n == 0:
         return tuple(carry), prev
     out = torch.empty((4, n, nf), dtype=torch.float32, device=device)
@@ -187,6 +202,7 @@ def fold_records(recs, carry, prev, freqs, pixel_area_cm2, theta_deg=90.0,
     params = fold_params(n, nf, recs.shape[0], pixel_area_cm2, theta_deg,
                          mechanism, s_max, gaunt, theta_los, s_on)
     _launch("records", device, recs.data_ptr(), freqs.data_ptr(),
+            _tables_ptr(device, mechanism, s_max),
             *(c.data_ptr() for c in carry), prev.data_ptr(), out.data_ptr(),
             prev_out.data_ptr(), ctypes.byref(params))
     return tuple(out.unbind(0)), prev_out
@@ -248,7 +264,7 @@ def fold_voxels(ds, te, ne, b, valid, freqs, pixel_area_cm2, sarea=None,
         return fold_voxels_plain(ds, te, ne, b, valid, freqs, pixel_area_cm2,
                                  sarea, theta, mech, theta_deg, mechanism,
                                  s_max, gaunt, carry)
-    _kernel_device(device, n, nf, s_max)
+    _kernel_device(device, n, nf)
     if n == 0:
         return (tuple(carry) if carry is not None
                 else transfer_carry_init(0, nf, device))
@@ -262,6 +278,7 @@ def fold_voxels(ds, te, ne, b, valid, freqs, pixel_area_cm2, sarea=None,
     # a null carry is a zero one
     _launch("voxels", device, *(ptr(t) for t in (
         ds, te, ne, b, valid, sarea, theta, mech, freqs)),
+        _tables_ptr(device, mechanism, s_max),
         *(ptr(c) for c in (carry or (None,) * 4)), out.data_ptr(),
         ctypes.byref(params))
     return tuple(out.unbind(0))

@@ -211,18 +211,35 @@ def test_wrapper_refuses_mixed_devices(cuda):
 
 
 # The transfer folds against their plain versions on the card. Both run the
-# same float32 ops in the same order (the kernel built with -fmad=false);
-# the gyroresonance harmonic sum alone is added in another order by torch's
-# reduction, so flux and finite tau are held to rtol 1e-5, or 1e-4 with
-# gyroresonance, and the infinite-tau (evanescent) and zero-flux sets must
-# be equal.
+# same float32 ops in the same order (the kernel built with -fmad=false), so
+# without gyroresonance the carries are equal (torch.equal); the
+# gyroresonance harmonic sum alone may be added in another order by torch's
+# reduction, so with it flux and finite tau are held to rtol 1e-4, and the
+# infinite-tau (evanescent) and zero-flux sets must be equal. The kernels
+# serve a ray with group_size(Nf) lanes and walk its records in chunks of
+# that many, so the cases run every group size, partial groups (Nf 3, 5,
+# 9), partial warps and blocks (1 and 37 rays), and invalid runs that
+# straddle a chunk or fill it. At these ray counts the wrapper gives every
+# ray 8 lanes (transfer_fold.group_size), so the *_at_every_group_size
+# tests force each group size.
 AREA = (0.045 * 6.957e10) ** 2
+FOLD_NF = [1, 2, 3, 5, 8, 9]
+FOLD_RAYS = [1, 37, 300]
 
 
-def _fold_records(device, n_rays=300, n_rec=24, seed=0):
+def _fold_freqs(device, nf):
+    return torch.tensor(75e6 * 10 ** (0.05 * np.arange(nf)),
+                        dtype=torch.float32, device=device)
+
+
+def _fold_records(device, n_rays=300, n_rec=32, seed=0, nf=3):
     """Records of rays walking from `start` with every kind of invalid
     record (NaN positions, S <= 0, cos theta NaN, ne NaN) and overdense
-    voxels; B 0-15 G so that gyroresonance layers lie at 75-89 MHz."""
+    voxels; B 0-15 G so that gyroresonance layers lie at 75-89 MHz. Rays 0-4
+    leave at record 10 (if there are more than 6 rays); ray 5 (mod n_rays)
+    has S = 0 at records 6-9, across the chunk boundary at 8, and ray 6 (mod
+    n_rays) no position at records 16-23, a whole chunk of 8 (two of 4),
+    before it is valid again."""
     rng = np.random.default_rng(seed)
     start = rng.uniform(-1.0, 1.0, (n_rays, 3)).astype(np.float32)
     pos = start[None] + np.cumsum(rng.normal(0.0, 0.01, (n_rec, n_rays, 3)),
@@ -240,29 +257,36 @@ def _fold_records(device, n_rays=300, n_rec=24, seed=0):
     rec[:, 7][(u > 0.1) & (u < 0.14)] = np.nan
     rec[:, 4][(u > 0.14) & (u < 0.16)] = np.nan
     rec[:, 4][(u > 0.16) & (u < 0.18)] = 3e8
-    rec[10:, 0:3, :5] = np.nan
+    if n_rays > 6:
+        rec[10:, 0:3, :5] = np.nan
+    rec[6:10, 3, 5 % n_rays] = 0.0
+    rec[16:24, 0:3, 6 % n_rays] = np.nan
     t = {k: torch.as_tensor(a, dtype=torch.float32, device=device)
          for k, a in (("recs", rec), ("start", start))}
-    freqs = torch.tensor([75e6, 84.1e6, 94.4e6], device=device)
-    return t["recs"], t["start"], freqs
+    return t["recs"], t["start"], _fold_freqs(device, nf)
 
 
 def _assert_folds_match(out, ref, mechanism):
-    rtol = 1e-4 if mechanism & 2 else 1e-5
+    """Equal carries without gyroresonance; with it, rtol 1e-4 on flux and
+    finite tau and equal infinite-tau and zero-flux sets."""
     for a, b in zip(out, ref):
         assert torch.equal(torch.isinf(a), torch.isinf(b))
         assert torch.equal(a == 0, b == 0)
+        if not mechanism & 2:
+            assert torch.equal(a, b)
         fin = torch.isfinite(b)
-        torch.testing.assert_close(a[fin], b[fin], rtol=rtol, atol=1e-30)
+        torch.testing.assert_close(a[fin], b[fin], rtol=1e-4, atol=1e-30)
 
 
+@pytest.mark.parametrize("n_rays", FOLD_RAYS)
+@pytest.mark.parametrize("nf", FOLD_NF)
 @pytest.mark.parametrize("gaunt", ["dulk", "exact"])
 @pytest.mark.parametrize("theta_los", [False, True])
 @pytest.mark.parametrize("mechanism", [1, 5, 7])
 def test_fold_records_kernel_matches_plain(cuda, mechanism, theta_los,
-                                           gaunt):
-    recs, start, freqs = _fold_records(cuda)
-    carry = transfer_carry_init(start.shape[0], 3, cuda)
+                                           gaunt, nf, n_rays):
+    recs, start, freqs = _fold_records(cuda, n_rays=n_rays, nf=nf)
+    carry = transfer_carry_init(start.shape[0], nf, cuda)
     kw = dict(theta_deg=70.0, mechanism=mechanism, gaunt=gaunt, s_on=True,
               theta_los=theta_los)
     launches = tf.LAUNCHES["records"]
@@ -272,11 +296,35 @@ def test_fold_records_kernel_matches_plain(cuda, mechanism, theta_los,
     torch.cuda.synchronize()
     assert tf.LAUNCHES["records"] == launches + 1
     _assert_folds_match(out, ref, mechanism)
-    torch.testing.assert_close(prev, prev_ref, rtol=0, atol=0)
-    assert torch.isinf(ref[2]).any() and (ref[0] > 0).float().mean() > 0.3
+    assert torch.equal(prev, prev_ref)
+    if n_rays == 300:
+        assert (torch.isinf(ref[2]).any()
+                and (ref[0] > 0).float().mean() > 0.3)
+
+
+@pytest.mark.parametrize("n_rays", FOLD_RAYS)
+@pytest.mark.parametrize("nf", FOLD_NF)
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("mechanism", [5, 7])
+def test_fold_records_kernel_matches_plain_at_every_group_size(
+        cuda, monkeypatch, mechanism, group, nf, n_rays):
+    recs, start, freqs = _fold_records(cuda, n_rays=n_rays, nf=nf)
+    carry = transfer_carry_init(start.shape[0], nf, cuda)
+    kw = dict(theta_deg=70.0, mechanism=mechanism, s_on=True, theta_los=True)
+    monkeypatch.setattr(tf, "group_size", lambda *_: group)
+    out, prev = tf.fold_records(recs, carry, start, freqs, AREA, **kw)
+    ref, prev_ref = tf.fold_records_plain(recs, carry, start, freqs, AREA,
+                                          **kw)
+    torch.cuda.synchronize()
+    _assert_folds_match(out, ref, mechanism)
+    assert torch.equal(prev, prev_ref)
 
 
 def _fold_voxels(device, nz=20, n_pix=300, seed=1):
+    """Voxels with invalid ones, NaN ne, ds = 0 and overdense ones, per-voxel
+    theta (exact 90s among them), source areas and mechanism masks; pixel 5
+    (mod n_pix) is invalid at voxels 6-9, across the chunk boundary at 8,
+    and pixel 6 (mod n_pix) at 8-15, a whole chunk of 8."""
     rng = np.random.default_rng(seed)
     shape = (nz, n_pix)
     f32 = np.float32
@@ -292,9 +340,12 @@ def _fold_voxels(device, nz=20, n_pix=300, seed=1):
     theta[(u > 0.18) & (u < 0.22)] = 90.0
     sarea = np.where(rng.random(shape) < 0.5,
                      rng.uniform(0.2, 3.0, shape) * AREA, 0.0)
+    valid = u > 0.1
+    valid[6:10, 5 % n_pix] = False
+    valid[8:16, 6 % n_pix] = False
     out = [torch.as_tensor(v[k].astype(f32), device=device)
            for k in ("ds", "te", "ne", "b")]
-    out.append(torch.as_tensor(u > 0.1, device=device))
+    out.append(torch.as_tensor(valid, device=device))
     extra = dict(
         sarea=torch.as_tensor(sarea.astype(f32), device=device),
         theta=torch.deg2rad(torch.as_tensor(theta.astype(f32),
@@ -304,13 +355,16 @@ def _fold_voxels(device, nz=20, n_pix=300, seed=1):
     return out, extra
 
 
+@pytest.mark.parametrize("n_pix", FOLD_RAYS)
+@pytest.mark.parametrize("nf", FOLD_NF)
 @pytest.mark.parametrize("per_voxel", [False, True])
-@pytest.mark.parametrize("mechanism", [5, 7])
-def test_fold_voxels_kernel_matches_plain(cuda, mechanism, per_voxel):
+@pytest.mark.parametrize("mechanism", [1, 5, 7])
+def test_fold_voxels_kernel_matches_plain(cuda, mechanism, per_voxel, nf,
+                                          n_pix):
     """A fixed theta without source areas, or per-voxel theta, source areas
     and mechanism masks."""
-    vox, extra = _fold_voxels(cuda)
-    freqs = torch.tensor([150e6, 300e6], device=cuda)
+    vox, extra = _fold_voxels(cuda, n_pix=n_pix)
+    freqs = _fold_freqs(cuda, nf) * 2.0
     kw = dict(mechanism=mechanism, gaunt="exact")
     if per_voxel:
         kw.update(extra, theta_deg=-1.0)
@@ -323,6 +377,89 @@ def test_fold_voxels_kernel_matches_plain(cuda, mechanism, per_voxel):
     torch.cuda.synchronize()
     assert tf.LAUNCHES["voxels"] == launches + 1
     _assert_folds_match(out, ref, mechanism)
+
+
+@pytest.mark.parametrize("n_pix", FOLD_RAYS)
+@pytest.mark.parametrize("nf", FOLD_NF)
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("mechanism", [5, 7])
+def test_fold_voxels_kernel_matches_plain_at_every_group_size(
+        cuda, monkeypatch, mechanism, group, nf, n_pix):
+    vox, extra = _fold_voxels(cuda, n_pix=n_pix)
+    freqs = _fold_freqs(cuda, nf) * 2.0
+    kw = dict(extra, theta_deg=-1.0, mechanism=mechanism, gaunt="exact")
+    kw["mech"] = kw["mech"] & mechanism
+    monkeypatch.setattr(tf, "group_size", lambda *_: group)
+    out = tf.fold_voxels(*vox, freqs, AREA, **kw)
+    ref = tf.fold_voxels_plain(*vox, freqs, AREA, **kw)
+    torch.cuda.synchronize()
+    _assert_folds_match(out, ref, mechanism)
+
+
+@pytest.mark.parametrize("nf", [3, 9])
+@pytest.mark.parametrize("entry", ["records", "voxels"])
+def test_fold_kernels_take_200_harmonics(cuda, entry, nf):
+    """Mechanism 7 at s_max = 200, above the former cap of 128 harmonics,
+    against the plain fold at the same cap; its tables staged in shared
+    memory."""
+    if entry == "records":
+        recs, start, freqs = _fold_records(cuda, nf=nf)
+        carry = transfer_carry_init(start.shape[0], nf, cuda)
+        kw = dict(mechanism=7, s_max=200, s_on=True, theta_los=True)
+        out, prev = tf.fold_records(recs, carry, start, freqs, AREA, **kw)
+        ref, prev_ref = tf.fold_records_plain(recs, carry, start, freqs,
+                                              AREA, **kw)
+        assert torch.equal(prev, prev_ref)
+    else:
+        vox, extra = _fold_voxels(cuda)
+        freqs = _fold_freqs(cuda, nf)
+        kw = dict(extra, theta_deg=-1.0, mechanism=7, s_max=200)
+        out = tf.fold_voxels(*vox, freqs, AREA, **kw)
+        ref = tf.fold_voxels_plain(*vox, freqs, AREA, **kw)
+    torch.cuda.synchronize()
+    _assert_folds_match(out, ref, 7)
+
+
+def test_fold_kernel_reads_large_tables_from_global_memory(cuda):
+    """An s_max whose tables exceed a block's staged shared memory (48 KB):
+    the kernel reads them from global memory and still matches the plain
+    fold (few voxels: the plain fold's harmonic axis is s_max long). T is
+    cut to 1e4-1e5 K, where every harmonic term stays finite up to s =
+    7000."""
+    vox, extra = _fold_voxels(cuda, nz=4, n_pix=37)
+    vox[1] = torch.clamp(vox[1], max=1e5)
+    freqs = _fold_freqs(cuda, 3)
+    kw = dict(extra, theta_deg=-1.0, mechanism=7, s_max=7000)
+    out = tf.fold_voxels(*vox, freqs, AREA, **kw)
+    ref = tf.fold_voxels_plain(*vox, freqs, AREA, **kw)
+    torch.cuda.synchronize()
+    _assert_folds_match(out, ref, 7)
+
+
+def test_get_mw_takes_any_harmonic_cap_on_the_card(cuda):
+    """A uniform-T get_mw (mechanism 5) on the card with Parms[7] = 200
+    runs, and equals the same call at Parms[7] = 30: without
+    gyroresonance no harmonic is summed."""
+    from raytracinggrff_tpu_torch.grff.transfer import get_mw
+    nz = 40
+    rng = np.random.default_rng(3)
+    parms = np.zeros((15, nz))
+    parms[0] = 1e8
+    parms[1] = rng.uniform(1e6, 2e6, nz)
+    parms[2] = rng.uniform(1e8, 2e8, nz)
+    parms[3] = rng.uniform(1.0, 10.0, nz)
+    parms[4] = 60.0
+    parms[6] = 5
+    lparms = [nz, 5, 0, 0, 0]
+    rparms = [AREA, 300e6, 0.05]
+    rl = {}
+    for cap in (30, 200):
+        parms[7] = cap
+        launches = tf.LAUNCHES["voxels"]
+        rl[cap] = get_mw(lparms, rparms, parms, device=cuda)
+        assert tf.LAUNCHES["voxels"] == launches + 1
+    assert np.isfinite(rl[200]).all() and (rl[200][5] > 0).all()
+    np.testing.assert_array_equal(rl[200], rl[30])
 
 
 @pytest.mark.parametrize("entry", ["records", "voxels"])

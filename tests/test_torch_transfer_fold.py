@@ -70,13 +70,14 @@ def _records(seed, n_rays=48, n_rec=32):
     return rec.astype(np.float32), start
 
 
-def _jax_stream(recs_list, start, freqs, mechanism, gaunt, theta_los, s_on):
+def _jax_stream(recs_list, start, freqs, mechanism, gaunt, theta_los, s_on,
+                s_max=30):
     """The JAX pipeline's stream_seg over consecutive segments: the ds/valid
     scan and make_voxel_update, with records whose row 7 is not finite
     masked under theta_los (the port's departure; README "Where the port
     departs", test_angle_less_records_match_masked_jax)."""
     update = jtr.make_voxel_update(freqs, AREA, THETA_DEG, mechanism,
-                                   gaunt=gaunt)
+                                   s_max=s_max, gaunt=gaunt)
     area32 = jnp.float32(AREA)
     scale = jnp.float32(R_SUN_CM)
 
@@ -267,8 +268,8 @@ def test_carry_continues_across_calls(entry):
 def test_wrappers_run_the_plain_folds_on_the_cpu_and_check_inputs():
     """On CPU tensors each wrapper returns its plain version's result and
     launches nothing; a device with no kernel, mixed devices, a wrong type,
-    shape or layout, an unknown Gaunt factor or too many harmonics are
-    refused."""
+    shape or layout and an unknown Gaunt factor are refused; any harmonic
+    cap is taken up to the device check."""
     rec, start = _records(5, n_rays=16, n_rec=6)
     rec, prev, freqs = _t(rec), _t(start), _t(_freqs())
     carry = ptr.transfer_carry_init(16, 3, "cpu")
@@ -305,39 +306,109 @@ def test_wrappers_run_the_plain_folds_on_the_cpu_and_check_inputs():
         tf.fold_voxels(*vox[:4], vox[4].to(torch.uint8), freqs, AREA)
     with pytest.raises(ValueError, match="sarea must be"):
         tf.fold_voxels(*vox, freqs, AREA, sarea=vox[0][:, :8].contiguous())
-    with pytest.raises(ValueError, match="harmonics"):
-        tf.fold_voxels(*(t.to("meta") for t in vox), freqs.to("meta"), AREA,
-                       s_max=_build.MAX_HARMONIC + 1)
+    for mechanism in (5, 7):
+        with pytest.raises(ValueError, match="no transfer-fold kernel"):
+            tf.fold_voxels(*(t.to("meta") for t in vox), freqs.to("meta"),
+                           AREA, mechanism=mechanism, s_max=200)
+        with pytest.raises(ValueError, match="no transfer-fold kernel"):
+            tf.fold_records(meta[0], tuple(c.to("meta") for c in carry),
+                            meta[1], meta[2], AREA, mechanism=mechanism,
+                            s_max=200)
 
 
 def test_fold_params_mirror_the_cuda_struct():
     """ops/_build._FoldParams lists the fields of struct FoldParams in
-    csrc/transfer_fold.cu in its order and types, with the same harmonic
-    table size, and the parameters carry the physics constants as the
-    float32 values the plain version's torch ops use."""
+    csrc/transfer_fold.cu in its order and types, scalars only (the harmonic
+    tables are a device array of their own), and the parameters carry the
+    physics constants as the float32 values the plain version's torch ops
+    use, and the lanes a ray."""
     src = (Path(_build.CSRC) / "transfer_fold.cu").read_text()
     body = re.search(r"struct FoldParams \{(.*?)\n\};", src, re.S).group(1)
     fields = []
-    for ctype, names in re.findall(r"^\s*(int|float) ([^;]+);", body, re.M):
+    for ctype, names in re.findall(r"^\s*(\w+) ([^;]+);", body, re.M):
         for name in names.split(","):
-            name = name.strip()
-            array = re.fullmatch(r"(\w+)\[kMaxHarmonic \+ 1\]", name)
-            fields.append((array.group(1) if array else name, ctype,
-                           bool(array)))
-    want = [(name, "int" if ct is ctypes.c_int else "float",
-             hasattr(ct, "_length_"))
+            fields.append((name.strip(), ctype))
+    want = [(name, "int" if ct is ctypes.c_int else "float")
             for name, ct in _build._FoldParams._fields_]
     assert fields == want
-    assert (f"constexpr int kMaxHarmonic = {_build.MAX_HARMONIC};" in src)
+    assert all(ct in (ctypes.c_int, ctypes.c_float)
+               for _, ct in _build._FoldParams._fields_)
     p = tf.fold_params(8, 3, 4, AREA, 120.0, 7, 30, "exact", True, True)
     assert (p.mechanism, p.gaunt_exact, p.s_max, p.theta_per_voxel,
-            p.s_on) == (7, 1, 30, 1, 1)
+            p.s_on, p.group) == (7, 1, 30, 1, 1, 8)
     assert p.theta0 == np.float32(np.deg2rad(120.0))
     assert p.fpe_sq == np.float32(8.93e3 ** 2)
     assert p.inv_mec2 == np.float32(1.0) / np.float32(9.1094e-28
                                                        * 2.998e10 ** 2)
-    assert p.lgam[30] == np.float32(math.lgamma(31))
-    assert p.log_s2[30] == np.float32(2.0 * math.log(30))
+    # enough rays: the next power of two >= min(Nf, 8)
+    assert [tf.group_size(nf, 2 ** 20) for nf in range(1, 12)] == [
+        1, 2, 4, 4, 8, 8, 8, 8, 8, 8, 8]
+    # the canonical segment and the sweep's (65,536 and 16,384 rays)
+    assert tf.group_size(3, 65536) == 4 and tf.group_size(1, 65536) == 1
+    assert tf.group_size(1, 16384) == 4 and tf.group_size(4, 16384) == 4
+    assert tf.group_size(1, 8192) == 8 and tf.group_size(1, 1) == 8
+    n = 65536 * 4
+    assert tf.fold_params(n, 9, 4, AREA, 90.0, 5, 30, "dulk", False).group \
+        == 8
+
+
+def test_harmonic_tables_keep_their_float32_values_and_grow_with_s_max():
+    """_build._harmonic_tables(s_max): 2 ln s and lgamma(s + 1) at column s
+    as float32, the values the fold's table held up to s = 128 and the
+    plain version's per-harmonic tensors hold, for any s_max."""
+    for s_max in (30, 128, 200, 1000):
+        tab = _build._harmonic_tables(s_max)
+        assert tab.shape == (2, s_max + 1) and tab.dtype == np.float32
+        assert (tab[:, :2] == 0).all()
+        for s in sorted({2, 3, 30, min(128, s_max), s_max}):
+            assert tab[0, s] == np.float32(2.0 * math.log(s))
+            assert tab[1, s] == np.float32(math.lgamma(s + 1))
+        harmonics = range(2, s_max + 1)
+        np.testing.assert_array_equal(
+            tab[0, 2:], torch.tensor([2.0 * math.log(k) for k in harmonics],
+                                     dtype=torch.float32).numpy())
+        np.testing.assert_array_equal(
+            tab[1, 2:], torch.tensor([math.lgamma(k + 1) for k in harmonics],
+                                     dtype=torch.float32).numpy())
+    small, large = _build._harmonic_tables(128), _build._harmonic_tables(200)
+    np.testing.assert_array_equal(large[:, :129], small)
+    assert np.isfinite(large).all() and (np.diff(large[:, 2:]) > 0).all()
+    assert _build._harmonic_tables(0).shape == (2, 2)
+
+
+@pytest.mark.parametrize("entry", ["records", "voxels"])
+def test_plain_folds_match_jax_above_128_harmonics(entry):
+    """The plain folds at s_max = 200 (Parms[7] above the kernel's former
+    cap of 128), mechanism 7, against the JAX stream_seg and grff_transfer
+    (_grff_transfer_jit) at the same cap, to the mechanism-7 tolerance."""
+    freqs = _freqs()
+    if entry == "records":
+        rec, start = _records(41)
+        segs = [rec[:16], rec[16:]]
+        ref, ref_prev = _jax_stream(segs, start, freqs, 7, "dulk", True,
+                                    True, s_max=200)
+        carry = ptr.transfer_carry_init(start.shape[0], 3, "cpu")
+        prev = _t(start)
+        for seg in segs:
+            carry, prev = tf.fold_records_plain(
+                _t(seg), carry, prev, _t(freqs), AREA, THETA_DEG, 7,
+                s_max=200, s_on=True, theta_los=True)
+        np.testing.assert_array_equal(prev.numpy(), ref_prev)
+    else:
+        v = _voxels(42)
+        ref = jtr.grff_transfer(v["ds"], v["te"], v["ne"], v["b"],
+                                v["valid"], freqs, AREA,
+                                s_area_cm2=v["sarea"], theta_deg=v["theta"],
+                                mechanism=7, s_max=200)
+        ref = [np.asarray(getattr(ref, k))
+               for k in ("flux_o", "flux_x", "tau_o", "tau_x")]
+        carry = tf.fold_voxels_plain(
+            _t(v["ds"]), _t(v["te"]), _t(v["ne"]), _t(v["b"]),
+            _t(v["valid"], torch.bool), _t(freqs), AREA, _t(v["sarea"]),
+            torch.deg2rad(_t(v["theta"])), theta_deg=-1.0, mechanism=7,
+            s_max=200)
+    _assert_carry_close(carry, ref, 7)
+    assert np.isinf(ref[2]).any() and np.isfinite(ref[2]).any()
 
 
 def test_pipelines_fold_once_per_segment_and_per_call(monkeypatch):
