@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # from the repository root
 
 Builds the kernel library from raytracinggrff_tpu_torch/csrc (the trace
-segment and the two transfer folds), holds the trace kernel against its
+segment, the two transfer folds, the MAS resample and spherical sampler,
+and the two line-of-sight scans), holds the trace kernel against its
 plain PyTorch version on the card, drives the production
 emission map (256^2 rays x 5000 steps x 128^3 cube at 75 MHz, nfreq 3,
 cross-sections and S input on) through run_ray_tracing_emission, and checks
@@ -14,8 +15,9 @@ maps of the TbSpectra sweep, the other device CLIs at the defaults of
 their CLIs, the production map over multi-device meshes (spawned and from torchrun), a
 map against the float64 transfer reference, the FMA build against the
 shipped exact build over whole traces and maps, the benchmark harness,
-a MAS time series stepped through MASModel.at_time, and the transfer folds
-against their plain versions, alone and inside whole maps.
+a MAS time series stepped through MASModel.at_time, the transfer folds
+against their plain versions, alone and inside whole maps, and the
+resample, sampler and scan kernels against theirs.
 Phases:
   1. versions, card, kernel build: the shipped library (-fmad=false) and
      the FMA build (FMA_NVCC_FLAGS, for phase 14), one nvcc each, started
@@ -92,10 +94,30 @@ Phases:
      DV_BAR_GR; (c) the LOS chain's synthetic_ff (phase 6's size) through
      the voxel fold and the plain one under DV_BAR_FIXED, and its fold
      alone timed both ways with its bound
+ 18. the scene kernels (csrc/resample_sph.cu, csrc/los_scans.cu) against
+     their plain versions: (a) the cube resample of the synthetic model's
+     five variables at 128^3 (phi0 0) and at the sweep's largest set,
+     576^3 at extent 1.5 (phi0 -140), with fill None and 0: NaN masks
+     equal and every other voxel within RESAMPLE_ULP_BAR ulps; the first
+     variable timed at each size; prepare_cubes' four cubes, and the
+     production map from kernel cubes against the map from plain cubes
+     under the map bars; (b) resample_mas_los at phase 6's shapes through
+     the spherical sampler and the plain one (Ne, Te, B as in (a)), the
+     sampler alone timed; (c) the ds scan on the canonical scene's first
+     segment (65,536 rays x 64 records), with and without a `usable` mask,
+     and pipeline._center_los with and without cos theta: valid and ds
+     equal (torch.equal), the scan timed; (d) get_mw in DEM mode (200
+     voxels, 100 frequencies, 50 temperatures), free-free and with
+     gyroresonance, through the DEM-scan kernel and the plain recurrence:
+     RL equal, the scan alone timed
 Each path that traces rays runs with the launch counts set to 0 just
 before it and checks them against its segment count just after: the
 trace kernel's and the record fold's, one launch each a segment; a LOS
-chain's synthetic_ff launches the voxel fold once.
+chain's synthetic_ff launches the voxel fold once. Every prepare_cubes
+(phases 4, 7, 10, 16, 17 and 18) launches the resample once a variable,
+resample_mas_los (phases 6 and 18) the spherical sampler once a variable,
+bench's LOS sampling (phase 11) the ds scan once a sampling, and get_mw
+in DEM mode the DEM scan once.
 The last lines are one JSON object listing the kernels, the card's name
 and power
 limit, and {"ok": true, "device": {...}}. Any failure is a traceback and a
@@ -177,6 +199,28 @@ FOLD_FLOPS_COMMON = (5, 45)
 FOLD_FLOPS_FF = {"dulk": (8, 9), "exact": (8, 10)}
 FOLD_FLOPS_NEUTRALS = (13, 10)
 FOLD_FLOPS_GR, FOLD_FLOPS_HARMONIC = (11, 64), (13, 7)
+RESAMPLE_SOURCE = "raytracinggrff_tpu_torch/csrc/resample_sph.cu"
+SCAN_SOURCE = "raytracinggrff_tpu_torch/csrc/los_scans.cu"
+# the JAX device programs that phase 18's kernels replace: _resample_cube_jit,
+# _interp_sph_jit, the ds scan of sample_model_with_rays (and of
+# los_from_records) and the voxel scan of _grff_transfer_dem_jit
+SCAN_REPLACES = {"resample_cube": "raytracinggrff_tpu/mas/model.py:259",
+                 "sample_sph": "raytracinggrff_tpu/mas/model.py:133",
+                 "valid_ds": "raytracinggrff_tpu/sampler.py:78",
+                 "dem_scan": "raytracinggrff_tpu/grff/transfer.py:425"}
+# float32 operations of csrc/resample_sph.cu and csrc/los_scans.cu, counted
+# as FOLD_FLOPS_* are: a sample at one point is the fmod 1, three axis
+# fractions 3 each, the r bounds 2 and seven lerps 4 each, 40; a cube voxel
+# adds r^2 and its root 6, y / r, acos, atan2 and the longitude offset 4,
+# 50. A valid record's ds is 10; one DEM step (a voxel, a mode and a
+# frequency) an exp, an expm1, two products and two sums, 6.
+SAMPLE_FLOPS = 40
+RESAMPLE_FLOPS = 50
+DS_FLOPS = 10
+DEM_FLOPS = 6
+# phase 18's bar on the resample and sampler kernels against their plain
+# versions, in ulps of a float32 value, with equal NaN masks
+RESAMPLE_ULP_BAR = 0
 SLICE = dict(n_pix=256, x_fov=1.44, freq_hz=75e6, grid_n=128,
              grid_extent=3.0, z_observer=3.0, dt=6e-3, n_steps=5000,
              record_stride=10, nfreq=3, freq0=75e6, freq_log_step=0.05,
@@ -319,22 +363,32 @@ def plain_folds():
 
 
 def reset_counts():
-    """Set the launch counts of the trace kernel and both folds to 0."""
+    """Set the launch counts of every kernel to 0: the trace kernel, both
+    folds, the resample and the spherical sampler, and both scans."""
+    from raytracinggrff_tpu_torch.ops import los_scans, resample
     from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
     from raytracinggrff_tpu_torch.ops.transfer_fold import LAUNCHES
     trace_segment.launches = 0
-    LAUNCHES.update(records=0, voxels=0)
+    for counts in (LAUNCHES, resample.LAUNCHES, los_scans.LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def check_kernel(tag, module, kind, n, device="cuda"):
+    """The launches of ops.`module` ('transfer_fold', 'resample' or
+    'los_scans') entry `kind` since reset_counts equal n on a card; the CPU
+    runs the plain versions, which count none. Returns the count."""
+    import importlib
+    counts = importlib.import_module(
+        f"raytracinggrff_tpu_torch.ops.{module}").LAUNCHES
+    got = counts[kind]
+    want = n if torch.device(device).type == "cuda" else 0
+    assert got == want, (tag, module, kind, got, want)
+    return got
 
 
 def check_folds(tag, kind, n, device="cuda"):
-    """The launches of fold_`kind` ('records' or 'voxels') since
-    reset_counts equal n on a card; the CPU runs the plain folds, which
-    count none. Returns the count."""
-    from raytracinggrff_tpu_torch.ops.transfer_fold import LAUNCHES
-    got = LAUNCHES[kind]
-    want = n if torch.device(device).type == "cuda" else 0
-    assert got == want, (tag, kind, got, want)
-    return got
+    """check_kernel of fold_`kind` ('records' or 'voxels')."""
+    return check_kernel(tag, "transfer_fold", kind, n, device)
 
 
 @contextlib.contextmanager
@@ -537,13 +591,14 @@ def phase_main(out, tmp):
         launches = trace_segment.launches
         assert launches == n_seg == timings["segments"], (launches, n_seg)
         folds = check_folds("4", "records", n_seg)
+        resamples = check_kernel("4", "resample", "cube", 5)
         rate = 256 * 256 * steps / timings["trace"]
         say(f"[4] run {run}: wall {wall:.3f} s; resample "
             f"{timings['resample']:.4f} s, trace {timings['trace']:.4f} s "
             f"({rate:.4g} ray-steps/s over {steps} steps), transfer "
             f"{timings['transfer']:.4f} s, finish {timings['finish']:.4f} s;"
             f" kernel launches {launches} = segments {n_seg}, record-fold "
-            f"launches {folds}")
+            f"launches {folds}, resample launches {resamples}")
     tb = res["emission_cube"]
     assert tb.shape == (256, 256, 3) and np.all(np.isfinite(tb)), tb.shape
     disk = np.load(npz)["emission_cube"]
@@ -556,8 +611,8 @@ def phase_main(out, tmp):
         f"1e4..3e6 K; percentiles 0/1/50/99/100: "
         f"{', '.join('%.4g' % p for p in pct)}")
     assert inside.all(), "on-disk T_b outside 1e4..3e6 K"
-    out.update(launches=launches, fold_launches=folds, wall=wall,
-               timings=timings)
+    out.update(launches=launches, fold_launches=folds,
+               resample_launches=resamples, wall=wall, timings=timings)
     return res
 
 
@@ -687,23 +742,26 @@ def phase_los(tmp, n_pix=128, device="cuda"):
     from raytracinggrff_tpu_torch.pipeline import (resample_mas_los,
                                                    synthetic_ff)
     model = synthetic_mas_model(Path(tmp) / "corona_los")
+    reset_counts()
     t0 = time.perf_counter()
     los = resample_mas_los(model, n_pix=n_pix, x_range=(-1.44, 1.44),
                            y_range=(-1.44, 1.44), n_z=400, dz0=3e-4,
                            phi0_offset=24.0, verbose=False, device=device)
     t1 = time.perf_counter()
-    reset_counts()
+    samples = check_kernel("6", "resample", "sph", 5, device)
     em = synthetic_ff(los, 450e6, 4, 0.1, verbose=False, device=device)
     t2 = time.perf_counter()
     folds = check_folds("6", "voxels", 1, device)
     say(f"[6] resample_mas_los {n_pix}^2 x 400 ({n_pix ** 2 * 400} samples "
-        f"per variable): {t1 - t0:.3f} s; synthetic_ff 4 frequencies from "
-        f"450 MHz: {t2 - t1:.3f} s; voxel-fold launches {folds}")
+        f"per variable): {t1 - t0:.3f} s, spherical-sampler launches "
+        f"{samples}; synthetic_ff 4 frequencies from 450 MHz: "
+        f"{t2 - t1:.3f} s; voxel-fold launches {folds}")
     tb = em["emission_cube"]
     assert tb.shape == (n_pix, n_pix, 4), tb.shape
     check_disk_tb("6", tb, disk_mask(n_pix, 1.44)[:, :, None].repeat(4, 2))
     return {"resample_s": t1 - t0, "transfer_s": t2 - t1,
-            "fold_launches": folds, "los": los, "map": em}
+            "fold_launches": folds, "sample_launches": samples, "los": los,
+            "map": em}
 
 
 def phase_gyro(tmp, n_pix=256, n_steps=5000, grid_n=128, device="cuda"):
@@ -730,6 +788,7 @@ def phase_gyro(tmp, n_pix=256, n_steps=5000, grid_n=128, device="cuda"):
     wall = time.perf_counter() - t0
     launches = trace_segment.launches
     check_folds("7", "records", n_segments(cfg), device)
+    check_kernel("7", "resample", "cube", 5, device)
     say(f"[7] gyroresonance map {n_pix}^2 x {n_steps} steps x {grid_n}^3: "
         f"wall {wall:.3f} s; resample {timings['resample']:.4f} s, trace "
         f"{timings['trace']:.4f} s, transfer {timings['transfer']:.4f} s, "
@@ -834,6 +893,10 @@ def phase_sweep(tmp, indices=SWEEP_INDICES, compare=SWEEP_INDICES,
         f"record-fold launches {launches} = segments {segments}")
     assert launches == segments, (launches, segments)
     check_folds("10", "records", segments, device)
+    sets = {(t["grid_n"], round(t["grid_extent"], 6)) for t in timings}
+    resamples = check_kernel("10", "resample", "cube", 5 * len(sets), device)
+    say(f"[10] resample launches {resamples} = 5 variables x {len(sets)} "
+        f"cube set(s)")
     assert len(firsts) == len(timings), (len(firsts), len(timings))
     for i, t, row in zip(indices, timings, rows):
         peak = ("not measured on the CPU" if t["peak_bytes"] is None
@@ -890,15 +953,16 @@ def phase_cli(tmp, device="cuda"):
     say("[11] bench (256^2 rays x 1000 trace steps on 128^3; 256^2 x 256 "
         "LOS samples), its two lines:")
     with first_segments(keep_cubes=True) as firsts:
-        trace_segment.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         bench.main(["--device", device])
         wall = time.perf_counter() - t0
         launches = trace_segment.launches
     runs = 1 + bench.build_parser().get_default("repeat")
     expect = runs * len(segment_plan(1000, 10, 64)[0])
+    scans = check_kernel("11", "los_scans", "valid_ds", runs, device)
     say(f"[11] bench: {wall:.3f} s; kernel launches {launches} = {runs} "
-        f"traces x segments")
+        f"traces x segments; ds-scan launches {scans} = {runs} LOS samplings")
     assert launches == expect, launches
     hold_segment("11", "bench's first segment", firsts[0], 0.99)
     del firsts
@@ -954,6 +1018,7 @@ def phase_cli(tmp, device="cuda"):
         f"{plane['ne'].min():.4g}..{plane['ne'].max():.4g} cm^-3, te "
         f"{plane['te'].min():.4g}..{plane['te'].max():.4g} K, |B| "
         f"{plane['b'].min():.4g}..{plane['b'].max():.4g} G")
+    return scans
 
 
 # phase 12's bar on a mesh map against the one-process map: every ray
@@ -1384,12 +1449,14 @@ def phase_series(tmp, device="cuda", **overrides):
     steps = steps_run(cfg.n_steps, cfg.record_stride)
     maps, out = [], []
     for i in (0, 1):
+        reset_counts()
         t0 = time.perf_counter()
         cubes = prepare_cubes(model.at_time(i), grid, cfg.phi0_offset,
                               verbose=False, device=device)
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         resample = time.perf_counter() - t0
+        check_kernel("16", "resample", "cube", 5, device)
         npz = Path(tmp) / f"series_{i}.npz"
         timings = {}
         reset_counts()
@@ -1474,14 +1541,14 @@ def fold_records_bound(recs, prev, nf, mechanism, gaunt="dulk", s_on=True,
                        theta_los=False, s_max=30):
     """Least time for one record fold from the last valid positions
     `prev`. Operations: those of the records the fold takes (valid by
-    sampler.record_step, with finite fields and ds > 0; it skips the
+    los_scans.record_step, with finite fields and ds > 0; it skips the
     others), FOLD_FLOPS_RECORD and its S area and angle terms, and
     fold_flops. Bytes: of every record the rows that decide its validity
     (0-3, and 7 with theta_los), and rows 4-6 of the valid ones; the carry
     and the last valid positions read and written once. Returns (ms,
     "operations" or "bytes", the records taken)."""
     from raytracinggrff_tpu_torch.constants import R_SUN_CM
-    from raytracinggrff_tpu_torch.sampler import record_step
+    from raytracinggrff_tpu_torch.ops.los_scans import record_step
     n_step = n_valid = 0
     for rec in recs:
         valid, ds, prev = record_step(
@@ -1687,12 +1754,14 @@ def phase_fold(out, tmp, los6, device="cuda", n_pix=256, n_steps=5000,
 
     model = synthetic_mas_model(Path(tmp) / "corona_fold", timestep=2)
     grid = UniformGrid.cube(3.0, grid_n)
+    reset_counts()
     cubes = prepare_cubes(MASModel(model), grid, 0.0, verbose=False,
                           device=device)
     gr_model = synthetic_mas_model(Path(tmp) / "corona_fold_gr",
                                    b0_gauss=50.0)
     gr_cubes = prepare_cubes(MASModel(gr_model), grid, 0.0, verbose=False,
                              keep_bvec=True, device=device)
+    check_kernel("17", "resample", "cube", 10, device)
     sizes = dict(SLICE, n_pix=n_pix, n_steps=n_steps, grid_n=grid_n)
     cfg = RayEmissionConfig(**sizes)
     cfg_gr = RayEmissionConfig(**dict(sizes, mechanism=7, theta_mode="los"))
@@ -1740,6 +1809,337 @@ def phase_fold(out, tmp, los6, device="cuda", n_pix=256, n_steps=5000,
                              bound_by=bound[1], max_abs_err=absd)
 
 
+@contextlib.contextmanager
+def plain_scenes():
+    """Route the resample, the spherical sampler, the ds scan and the DEM
+    scan through their plain versions on CUDA tensors for a comparison
+    run; the wrappers themselves never do."""
+    from raytracinggrff_tpu_torch import sampler
+    from raytracinggrff_tpu_torch.grff import transfer
+    from raytracinggrff_tpu_torch.ops import los_scans, resample
+    saved = (resample.resample_cube, resample.sample_sph, sampler.valid_ds,
+             transfer.dem_scan)
+    resample.resample_cube = resample.resample_cube_plain
+    resample.sample_sph = resample.sample_sph_plain
+    sampler.valid_ds = los_scans.valid_ds_plain
+    transfer.dem_scan = los_scans.dem_scan_plain
+    try:
+        yield
+    finally:
+        (resample.resample_cube, resample.sample_sph, sampler.valid_ds,
+         transfer.dem_scan) = saved
+
+
+@contextlib.contextmanager
+def captured(module, name):
+    """Record the (args, kw) of each call of module.`name` while the block
+    runs; the calls run and count as usual."""
+    fn = getattr(module, name)
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return fn(*args, **kw)
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def ulp_order(x):
+    """float32 tensor -> int64 keys in the order of the values, one apart
+    for neighbouring floats (-0 and +0 equal)."""
+    i = x.contiguous().view(torch.int32).long()
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def float_agreement(a, b):
+    """float32 tensors a (kernel) and b (plain): whether their NaN masks
+    are equal, the count of entries, NaN in neither, that differ, the
+    largest of those differences in ulps and in absolute value."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    both = ~(na | nb)
+    x, y = a[both], b[both]
+    part = x != y
+    n = int(part.sum())
+    ulps = int((ulp_order(x[part]) - ulp_order(y[part])).abs().max()) \
+        if n else 0
+    absd = float((x[part].double() - y[part].double()).abs().max()) \
+        if n else 0.0
+    return torch.equal(na, nb), n, ulps, absd
+
+
+def hold_floats(tag, what, a, b, ulp_bar=0):
+    """Print and hold kernel result `a` against plain `b`: equal NaN masks,
+    and every other entry equal, or within ulp_bar ulps. Returns the
+    largest absolute difference."""
+    same_nan, n, ulps, absd = float_agreement(a, b)
+    say(f"[{tag}] {what}: NaN masks equal {same_nan} "
+        f"({int(torch.isnan(b).sum())} NaN of {b.numel()}), {n} other "
+        f"entries differ, by at most "
+        f"{ulps} ulp ({absd:.3g}); bar {ulp_bar} ulp")
+    assert same_nan and ulps <= ulp_bar, (tag, what, n, ulps)
+    return absd
+
+
+def sweep_cube_sets():
+    """The TbSpectra sweep's distinct (grid_n, grid_extent) cube sets at
+    its CLI defaults (lattice presets), in frequency order."""
+    from raytracinggrff_tpu_torch.cli.tb_spectra import (quantize_params,
+                                                         select_params,
+                                                         sweep_frequencies)
+    sets = []
+    for f in sweep_frequencies():
+        p = quantize_params(select_params(float(f)))
+        key = (int(p["grid_n"]), round(float(p["grid_extent"]), 6))
+        if key not in sets:
+            sets.append(key)
+    return sets
+
+
+# phase 18 (a): the production map's cube set, and the sweep's largest
+# (its index 29, 800 MHz): (grid_n, grid_extent, phi0)
+RESAMPLE_SETS = ((128, 3.0, 0.0), (576, 1.5, -140.0))
+MAS_VARIABLES = ("rho", "t", "br", "bt", "bp")
+
+
+def resample_bound(arrays, n):
+    """Least time for one cube resample of n^3 voxels from the MAS arrays
+    (data and axes): RESAMPLE_FLOPS a voxel, the cube written and the
+    arrays and its three axes read once."""
+    nbytes = 4 * (n ** 3 + sum(a.numel() for a in arrays) + 3 * n)
+    return bound(RESAMPLE_FLOPS * n ** 3, nbytes)
+
+
+def time_kernel(kernel, plain, reps=20):
+    """(kernel ms by cuda_ms, kernel ms by device_ms, plain ms by cuda_ms
+    over one call) of the calls kernel() and plain()."""
+    return (cuda_ms(kernel, reps=reps), device_ms(kernel, reps=reps),
+            cuda_ms(plain, reps=1))
+
+
+def kernel_entry(tag, what, times, bnd, absd):
+    """Print one kernel's times beside its bound; its kernels-line entry
+    (ms by device_ms)."""
+    ms, dev_ms, plain_ms = times
+    bound_ms, bound_by = bnd
+    say(f"[{tag}] {what}: kernel {ms:.4f} ms ({dev_ms:.4f} ms on the device "
+        f"alone), plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), {bound_ms / dev_ms:.4f} of the device time")
+    return dict(ms=dev_ms, wrapper_ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=absd)
+
+
+def phase_resample(out, tmp, device="cuda", sets=RESAMPLE_SETS,
+                   names=MAS_VARIABLES, map_pix=256, map_steps=5000):
+    """Phase 18 (a): rgrff_resample_cube against resample_cube_plain on
+    the synthetic model's variables `names` at each (grid_n, extent, phi0)
+    of `sets`, with fill_nan None and 0.0 (hold_floats, RESAMPLE_ULP_BAR),
+    the first variable timed at each size (the kernels line takes the
+    first set's time: the production map's); then the production map (SLICE
+    at map_pix^2 x map_steps) from prepare_cubes through the kernel against
+    the map from the plain cubes, under the map bars."""
+    from raytracinggrff_tpu_torch.grids import UniformGrid
+    from raytracinggrff_tpu_torch.mas.model import (MASModel,
+                                                    synthetic_mas_model)
+    from raytracinggrff_tpu_torch.ops import resample
+    from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
+                                                   prepare_cubes,
+                                                   run_ray_tracing_emission)
+    model = MASModel(synthetic_mas_model(Path(tmp) / "corona_rs"))
+    worst, entry = 0.0, None
+    for n, extent, phi0 in sets:
+        grid = UniformGrid.cube(extent, n)
+        axes = [torch.as_tensor(a, dtype=torch.float32, device=device)
+                for a in grid.axes()]
+        for v in names:
+            arrays = model[v].device_arrays(device)
+            for fill in (None, 0.0):
+                k = resample.resample_cube(*arrays, *axes, phi0, fill)
+                p = resample.resample_cube_plain(*arrays, *axes, phi0, fill)
+                worst = max(worst, hold_floats(
+                    "18", f"(a) {v} on {n}^3 at extent {extent}, phi0 "
+                    f"{phi0}, fill {fill}", k, p, RESAMPLE_ULP_BAR))
+                del k, p
+            if v != names[0]:
+                continue
+            times = time_kernel(
+                lambda: resample.resample_cube(*arrays, *axes, phi0, None),
+                lambda: resample.resample_cube_plain(*arrays, *axes, phi0,
+                                                     None), reps=5)
+            timed = kernel_entry("18", f"(a) resample of {v} onto {n}^3",
+                                 times, resample_bound(arrays, n), worst)
+            entry = entry or timed     # the production map's set
+    entry["max_abs_err"] = worst
+    out["resample_cube"] = entry
+
+    grid = UniformGrid.cube(3.0, 128)
+    reset_counts()
+    cubes_k = prepare_cubes(model, grid, 0.0, verbose=False, device=device)
+    check_kernel("18", "resample", "cube", 5, device)
+    with plain_scenes():
+        cubes_p = prepare_cubes(model, grid, 0.0, verbose=False,
+                                device=device)
+    for key in ("omega_pe", "ne", "te", "b"):
+        hold_floats("18", f"(a) prepare_cubes {key}, kernel vs plain",
+                    cubes_k[key], cubes_p[key], RESAMPLE_ULP_BAR)
+    cfg = RayEmissionConfig(**dict(SLICE, n_pix=map_pix, n_steps=map_steps))
+    r_k = run_ray_tracing_emission(cubes=cubes_k, config=cfg, verbose=False,
+                                   device=device)
+    r_p = run_ray_tracing_emission(cubes=cubes_p, config=cfg, verbose=False,
+                                   device=device)
+    hold_maps("18", f"(a) production map {map_pix}^2 x {map_steps} from "
+              f"kernel cubes vs plain cubes", r_p, r_k, DV_BAR_FIXED,
+              disk_mask(map_pix, cfg.x_fov))
+
+
+def phase_sample(out, tmp, device="cuda", n_pix=128):
+    """Phase 18 (b): resample_mas_los at the CLI defaults (phase 6's
+    shapes) with MASVariable.sample_sph through rgrff_sample_sph and
+    through sample_sph_plain: Ne, Te and B equal (hold_floats); then the
+    first variable's sample alone, timed both ways."""
+    from raytracinggrff_tpu_torch.mas.model import synthetic_mas_model
+    from raytracinggrff_tpu_torch.ops import resample
+    from raytracinggrff_tpu_torch.pipeline import resample_mas_los
+    model = synthetic_mas_model(Path(tmp) / "corona_sph")
+    kw = dict(n_pix=n_pix, x_range=(-1.44, 1.44), y_range=(-1.44, 1.44),
+              n_z=400, dz0=3e-4, phi0_offset=24.0, verbose=False,
+              device=device)
+    reset_counts()
+    with captured(resample, "sample_sph") as calls:
+        t0 = time.perf_counter()
+        los_k = resample_mas_los(model, **kw)
+        t_k = time.perf_counter() - t0
+    check_kernel("18", "resample", "sph", 5, device)
+    with plain_scenes():
+        t0 = time.perf_counter()
+        los_p = resample_mas_los(model, **kw)
+        t_p = time.perf_counter() - t0
+    say(f"[18] (b) resample_mas_los {n_pix}^2 x 400: {t_k:.3f} s through "
+        f"the kernel, {t_p:.3f} s through the plain sampler")
+    worst = 0.0
+    for key in ("Ne_LOS", "Te_LOS", "B_LOS"):
+        worst = max(worst, hold_floats(
+            "18", f"(b) {key} (float64 of the float32 samples)",
+            torch.as_tensor(los_k[key]).float(),
+            torch.as_tensor(los_p[key]).float(), RESAMPLE_ULP_BAR))
+    args, _ = calls[0]
+    n = args[4].numel()
+    times = time_kernel(lambda: resample.sample_sph(*args),
+                        lambda: resample.sample_sph_plain(*args))
+    nbytes = 16 * n + 4 * sum(a.numel() for a in args[:4])
+    entry = kernel_entry("18", f"(b) sample_sph of rho at {n} points", times,
+                         bound(SAMPLE_FLOPS * n, nbytes), worst)
+    out["sample_sph"] = entry
+
+
+def phase_scans(out, device="cuda", n_pix=256):
+    """Phase 18 (c): rgrff_valid_ds against valid_ds_plain on the canonical
+    scene's first segment (fold_scene: n_pix^2 rays x 64 records), with and
+    without a `usable` mask (row 7 finite), valid and ds equal
+    (torch.equal), timed; and pipeline._center_los of the inspection
+    pixel, with and without cos theta, through the kernel and the plain
+    scan. (d) get_mw in DEM mode (dem_case) through rgrff_dem_scan and
+    dem_scan_plain, free-free and with gyroresonance, RL equal, and the
+    scan alone timed."""
+    from raytracinggrff_tpu_torch.grff import transfer
+    from raytracinggrff_tpu_torch.ops import los_scans
+    from raytracinggrff_tpu_torch.pipeline import _center_los
+    from raytracinggrff_tpu_torch.utils.plotting import inspection_pixel_index
+    recs, start = fold_scene(n_pix)
+    pos = recs[:, 0:3].transpose(1, 2).contiguous()
+    s = recs[:, 3].contiguous()
+    prev = torch.as_tensor(start, device=recs.device)
+    n_rec, n = s.shape
+    row7 = torch.isfinite(recs[:, 7])
+    for usable in (None, row7):
+        res = los_scans.valid_ds(pos, s, prev, usable=usable)
+        ref = los_scans.valid_ds_plain(pos, s, prev, usable=usable)
+        equal = [torch.equal(a, b) for a, b in zip(res, ref)]
+        say(f"[18] (c) valid_ds, {n} rays x {n_rec} records, usable "
+            f"{usable is not None}: {int(ref[0].sum())} valid; valid and ds "
+            f"equal (torch.equal) {equal}")
+        assert all(equal), equal
+    n_valid = int(res[0].sum())
+    nbytes = n_rec * n * (12 + 4 + 1 + 1 + 4) + 12 * n
+    times = time_kernel(
+        lambda: los_scans.valid_ds(pos, s, prev, usable=row7),
+        lambda: los_scans.valid_ds_plain(pos, s, prev, usable=row7))
+    out["valid_ds"] = kernel_entry(
+        "18", f"(c) valid_ds alone ({n} rays x {n_rec} records, usable)",
+        times, bound(DS_FLOPS * n_valid, nbytes), 0.0)
+    p = inspection_pixel_index(n_pix)
+    rows = recs[:, :, p].contiguous()
+    for with_cos in (False, True):
+        reset_counts()
+        got = _center_los(rows, start[p], with_cos)
+        check_kernel("18", "los_scans", "valid_ds", 1, device)
+        with plain_scenes():
+            want = _center_los(rows, start[p], with_cos)
+        equal = (torch.equal(got.valid_mask, want.valid_mask)
+                 and torch.equal(got.ds, want.ds))
+        say(f"[18] (c) _center_los of pixel {p}, cos theta {with_cos}: "
+            f"{int(want.valid_mask.sum())} valid of {rows.shape[0]}; valid "
+            f"and ds equal {equal}")
+        assert equal
+    del recs, pos, s
+
+    for mech in (1, 3):
+        args = dem_case(mech=mech)
+        reset_counts()
+        with captured(transfer, "dem_scan") as calls:
+            rl_k = transfer.get_mw(*args, device=device)
+        out["dem_launches"] = check_kernel("18", "los_scans", "dem", 1,
+                                           device)
+        with plain_scenes():
+            rl_p = transfer.get_mw(*args, device=device)
+        equal = bool(np.array_equal(rl_k, rl_p))
+        lp = args[0]
+        say(f"[18] (d) get_mw DEM mode, Nz {lp[0]}, Nf {lp[1]}, NT {lp[2]}, "
+            f"mechanism {mech}: RL equal {equal}; flux O {rl_k[5].min():.4g}"
+            f"..{rl_k[5].max():.4g} SFU, tau O up to {rl_k[1].max():.4g}")
+        assert equal and np.all(np.isfinite(rl_k[5])), mech
+    (tau, src, evan, m), _ = calls[0]
+    nz, nf = tau.shape[1:]
+    times = time_kernel(lambda: los_scans.dem_scan(tau, src, evan, m),
+                        lambda: los_scans.dem_scan_plain(tau, src, evan, m))
+    nbytes = 2 * nz * nf * 9 + nz + 16 * nf
+    out["dem_scan"] = kernel_entry(
+        "18", f"(d) dem_scan alone (2 modes x {nz} voxels x {nf} "
+        f"frequencies)", times, bound(DEM_FLOPS * 2 * nz * nf, nbytes), 0.0)
+
+
+def dem_case(nz=200, nt=50, nf=100, mech=1, seed=5):
+    """get_mw's arguments (lparms, rparms, parms, t, dem) for a DEM-mode
+    line of sight, the case of tests/test_torch_get_mw.py at nz voxels, nt
+    temperatures and nf frequencies from 150 MHz: a log-normal DEM per
+    voxel; mechanism flags `mech` (3: free-free and gyroresonance, with B
+    of 30-300 G)."""
+    rng = np.random.default_rng(seed)
+    t_grid = np.logspace(4.5, 6.8, nt)
+    t_peak = 10 ** rng.uniform(5.2, 6.4, nz)
+    em = 10 ** rng.uniform(24.0, 26.0, nz)
+    prof = np.exp(-0.5 * (np.log(t_grid[:, None] / t_peak[None, :])
+                          / 0.5) ** 2)
+    w = np.gradient(t_grid)
+    dem = em[None, :] * prof / np.sum(w[:, None] * prof, axis=0)
+    ds = rng.uniform(5e8, 5e9, nz)
+    parms = np.zeros((15, nz), order="F")
+    parms[0] = ds
+    parms[1] = np.sum(w[:, None] * dem * t_grid[:, None], axis=0) / em
+    parms[2] = np.sqrt(em / ds)
+    parms[3] = rng.uniform(0.5, 4.0, nz) * (75.0 if mech & 2 else 1.0)
+    parms[4] = 70.0
+    parms[6] = mech
+    parms[7] = 30
+    lparms = np.array([nz, nf, nt, 1, 0], np.int32)
+    rparms = np.array([1e18, 150e6, 0.01])
+    return (lparms, rparms, parms, t_grid,
+            np.asfortranarray(dem).ravel(order="F"))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1764,7 +2164,7 @@ def main():
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
             phase_sweep(tmp)
-            phase_cli(tmp)
+            scan_launches = phase_cli(tmp)
             phase_mesh(tmp, one)
             phase_float64(tmp)
             phase_fma(tmp, fma_lib)
@@ -1772,7 +2172,9 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             phase_series(tmp)
             phase_fold(out, tmp, los6)
-        del los6
+            phase_resample(out, tmp)
+            phase_sample(out, tmp)
+        phase_scans(out)
     say(f"total {time.perf_counter() - t_all:.1f} s")
     fold, vfold = out["fold"], out["voxel_fold"]
     kernels = [
@@ -1786,6 +2188,14 @@ def main():
              launches=out["fold_launches"]),
         dict(vfold, name="fold_voxels", source=FOLD_SOURCE,
              replaces=FOLD_REPLACES["voxels"])]
+    launches = {"resample_cube": out["resample_launches"],
+                "sample_sph": los6["sample_launches"],
+                "valid_ds": scan_launches, "dem_scan": out["dem_launches"]}
+    del los6
+    kernels += [dict(out[name], name=name,
+                     source=SCAN_SOURCE if name in ("valid_ds", "dem_scan")
+                     else RESAMPLE_SOURCE, replaces=SCAN_REPLACES[name],
+                     launches=launches[name]) for name in launches]
     say(json.dumps({"kernels": [
         dict(k, route="cuda", library_ms=None,
              bound_share=k["bound_ms"] / k["ms"]) for k in kernels]}))

@@ -58,11 +58,27 @@ pass/fail checks of chip_smoke.py.
      device sleep), in one process per tree: the tree of the parent
      commit, unpacked by `git archive` into PARENT_TREE (default
      _archive/parent; skipped if absent), and this one, in the turns
-     parent, this, this, parent. A case a tree's wrapper refuses is
+     parent, this, this, parent (in_trees). A case a tree's wrapper refuses is
      reported as refused. In this tree's first run, also every case's
      device time at each group size G (1, 2, 4, 8 lanes a ray), each held
      equal to the shipped G's carry (torch.equal; rtol 1e-6 with
      gyroresonance).
+  9. resample: the layers of prepare_cubes on the host clock, each
+     followed by a device synchronize: the HDF4 read of the five
+     variables (a fresh MASModel), their upload with the grid axes, the
+     five cube resamples through the kernel (csrc/resample_sph.cu) or the
+     plain version, and _finalize_cubes; the two in turns, the median of
+     5 runs (3 for the sweep's sets) after a warm-up each, at 128^3 (the
+     production map's set) and at each of the TbSpectra sweep's nine cube
+     sets (256^3-576^3, phi0 -140).
+ 10. turns: the end-to-end numbers of the parent tree and of this one, in
+     the turns parent, this, this, parent, each in a process of its own
+     run from its tree (as phase fold): the production slice (the median
+     of 5 runs of each stage after a warm-up, and s/frequency), the
+     30-map TbSpectra sweep (wall and stage sums), the LOS chain's
+     resample_mas_los at chip_smoke.py phase 6's shapes (the median of 3
+     after a warm-up) and the harness in both modes (chip_smoke.py phase
+     15); each number's ratio this / parent.
 The card's name and power limit are printed first and last. Without a
 CUDA device it exits 1.
 """
@@ -89,8 +105,8 @@ from chip_smoke import (DV_BAR_GR, SLICE, build_all, canonical_scene,
 
 STAGES = ("wall", "resample", "trace", "transfer", "finish")
 PHASES = ("spread", "profile", "cache", "floor", "s_mode", "sweep",
-          "mesh", "fold")
-# phase fold: the parent tree's directory
+          "mesh", "fold", "resample", "turns")
+# phases fold and turns: the parent tree's directory
 PARENT_TREE = Path(os.environ.get("PARENT_TREE", "_archive/parent"))
 # phase cache: flags added to FMA_NVCC_FLAGS for each build; "fma" adds
 # none, and "shipped" is NVCC_FLAGS (-fmad=false)
@@ -478,8 +494,9 @@ def fold_times(variants):
     return out
 
 
-# run from a tree's directory: that tree's package, this tree's scripts
-FOLD_CHILD = """\
+# run from a tree's directory: that tree's package, this tree's scripts;
+# calls profile_slice.<argv[2]>(*argv[3:]) and prints its JSON result
+TREE_CHILD = """\
 import importlib.util, json, sys
 from pathlib import Path
 import torch
@@ -490,16 +507,19 @@ for name in ("chip_smoke", "profile_slice"):
     sys.modules[name] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sys.modules[name])
 with torch.inference_mode():
-    times = sys.modules["profile_slice"].fold_times(sys.argv[2] == "variants")
-print("FOLD " + json.dumps(times))
+    res = getattr(sys.modules["profile_slice"], sys.argv[2])(*sys.argv[3:])
+print("RESULT " + json.dumps(res))
 """
 
 
-def phase_fold():
-    """The fold cases in the parent tree and in this one, in turns, each tree
-    in a process of its own run from that tree, so it imports its own
-    package and builds its own kernels (and this tree's chip_smoke.py and
-    profile_slice.py, which use only the wrappers' common interface)."""
+def in_trees(fn, *args):
+    """profile_slice.`fn`(*args) in the parent tree (PARENT_TREE, if it is
+    there) and in this one in the turns parent, this, this, parent, each in
+    a process of its own run from that tree, so that it imports that
+    tree's package and builds its kernels (and this tree's chip_smoke.py
+    and profile_slice.py, which use only the package's public entries).
+    `args` may be a callable of (label, turn) giving the arguments of that
+    turn. Returns [(label, tree, result)] in the order run."""
     here = Path(__file__).resolve().parent
     trees = [("this", here)]
     if PARENT_TREE.is_dir():
@@ -507,20 +527,34 @@ def phase_fold():
         trees = [("parent", parent), ("this", here), ("this", here),
                  ("parent", parent)]
     else:
-        say(f"[fold] no parent tree at {PARENT_TREE}; timing this tree only")
-    runs = collections.defaultdict(list)
+        say(f"[{fn}] no parent tree at {PARENT_TREE}; this tree only")
+    out = []
     for turn, (label, tree) in enumerate(trees):
-        variants = label == "this" and turn == 1 or len(trees) == 1
+        argv = (args[0](label, turn, len(trees))
+                if args and callable(args[0]) else args)
         proc = subprocess.run(
-            [sys.executable, "-c", FOLD_CHILD, str(Path(__file__).resolve()),
-             "variants" if variants else "shipped"],
+            [sys.executable, "-c", TREE_CHILD,
+             str(Path(__file__).resolve()), fn, *argv],
             cwd=tree, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"fold times in {tree} failed:\n"
+            raise RuntimeError(f"{fn} in {tree} failed:\n"
                                f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
         line = next(ln for ln in proc.stdout.splitlines()
-                    if ln.startswith("FOLD "))
-        times = json.loads(line[5:])
+                    if ln.startswith("RESULT "))
+        out.append((label, tree, json.loads(line[7:])))
+    return out
+
+
+def phase_fold():
+    """The fold cases in the parent tree and in this one, in turns
+    (in_trees), this tree's first turn also at every group size."""
+    def argv(label, turn, n_turns):
+        first = label == "this" and turn == 1 or n_turns == 1
+        return ("variants" if first else "shipped",)
+
+    runs = collections.defaultdict(list)
+    for turn, (label, tree, times) in enumerate(in_trees("fold_child",
+                                                          argv)):
         runs[label].append(times)
         say(f"[fold] turn {turn} ({label}, {tree}): " + "; ".join(
             f"{case} refused" if t["device"] is None else
@@ -547,6 +581,194 @@ def phase_fold():
         say(f"[fold] {case}, device ms by group size: " + ", ".join(
             f"{v} {t:.4f}" for v, t in times.items()
             if v not in ("shipped", "device")))
+
+
+def fold_child(mode):
+    """fold_times in a tree's process: mode 'variants' or 'shipped'."""
+    return fold_times(mode == "variants")
+
+
+def resample_layers(model_path, grid, phi0, kernel, bvec=False,
+                    device="cuda"):
+    """One prepare_cubes split into its layers, each on the host clock
+    with the device drained after it: read (a fresh MASModel's five
+    variables, MASVariable.from_file), upload (device_arrays and the grid
+    axes), resample (the five cubes through ops/resample.resample_cube, or
+    resample_cube_plain with kernel False), finalize (_finalize_cubes, and
+    with bvec _bvec_image_cubes). Returns {layer: seconds}."""
+    from raytracinggrff_tpu_torch.mas.model import MASModel
+    from raytracinggrff_tpu_torch.ops import resample
+    from raytracinggrff_tpu_torch.pipeline import (_bvec_image_cubes,
+                                                   _finalize_cubes)
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    t = [time.perf_counter()]
+    model = MASModel(model_path)
+    names = ("rho", model.temperature_variable(), "br", "bt", "bp")
+    variables = [model[v] for v in names]
+    t.append(time.perf_counter())
+    arrays = [v.device_arrays(device) for v in variables]
+    axes = [torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in grid.axes()]
+    sync()
+    t.append(time.perf_counter())
+    fn = resample.resample_cube if kernel else resample.resample_cube_plain
+    raw = [fn(*a, *axes, phi0, None) for a in arrays]
+    sync()
+    t.append(time.perf_counter())
+    cubes = _finalize_cubes(*raw)
+    if bvec:
+        cubes += _bvec_image_cubes(*raw[2:], grid)
+    sync()
+    t.append(time.perf_counter())
+    return dict(zip(("read", "upload", "resample", "finalize"),
+                    np.diff(t).tolist()))
+
+
+def phase_resample(sets=None, device="cuda"):
+    """The layers of prepare_cubes (resample_layers) through the kernel and
+    through the plain version, in turns (plain, kernel, kernel, plain,
+    ...), the median of `reps` runs each after a warm-up: at 128^3 (phi0
+    0, the production map's set, 5 runs) and at each of the TbSpectra
+    sweep's nine cube sets (phi0 -140, 3 runs); or at `sets`, (grid_n,
+    extent, phi0, reps) each."""
+    from raytracinggrff_tpu_torch.grids import UniformGrid
+    from raytracinggrff_tpu_torch.mas.model import synthetic_mas_model
+    sets = sets or [(128, 3.0, 0.0, 5)] + [
+        (n, e, -140.0, 3) for n, e in chip_smoke.sweep_cube_sets()]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = synthetic_mas_model(Path(tmp) / "corona", timestep=2)
+        total = collections.defaultdict(float)
+        for j, (n, extent, phi0, reps) in enumerate(sets):
+            grid = UniformGrid.cube(extent, n)
+            runs = {True: [], False: []}
+            for i in range(2 * reps + 2):
+                kernel = i % 4 in (1, 2)
+                res = resample_layers(path, grid, phi0, kernel,
+                                      device=device)
+                if i > 1:                  # the first two are warm-ups
+                    runs[kernel].append(res)
+            for kernel in (False, True):
+                med = {k: float(np.median([r[k] for r in runs[kernel]]))
+                       for k in runs[kernel][0]}
+                whole = sum(med.values())
+                label = "kernel" if kernel else "plain"
+                if j:
+                    total[label] += whole
+                say(f"[resample] {n}^3 at extent {extent}, phi0 {phi0}, "
+                    f"{label}: " + ", ".join(
+                        f"{k} {v:.5f} s" for k, v in med.items())
+                    + f"; all {whole:.5f} s (median of {reps})")
+        say(f"[resample] the {len(sets) - 1} sets after the first (the "
+            f"sweep's): plain {total['plain']:.4f} s, kernel "
+            f"{total['kernel']:.4f} s")
+        los_profile(Path(tmp), device)
+
+
+def los_profile(tmp, device="cuda", top=12):
+    """The LOS chain's resample_mas_los at chip_smoke.py phase 6's shapes
+    under cProfile, after a warm-up: its wall time and the host functions
+    with the most time of their own (a call that waits for the device,
+    such as a copy to the host, holds that wait)."""
+    import cProfile
+    import pstats
+    from raytracinggrff_tpu_torch.mas.model import synthetic_mas_model
+    from raytracinggrff_tpu_torch.pipeline import resample_mas_los
+    model = synthetic_mas_model(tmp / "corona_los")
+    kw = dict(n_pix=128, x_range=(-1.44, 1.44), y_range=(-1.44, 1.44),
+              n_z=400, dz0=3e-4, phi0_offset=24.0, verbose=False,
+              device=device)
+    resample_mas_los(model, **kw)
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    resample_mas_los(model, **kw)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    say(f"[resample] resample_mas_los 128^2 x 400 under cProfile: {wall:.4f}"
+        f" s; the functions with the most time of their own:")
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    for (path, line, name), (_, calls, own, cum, _) in rows:
+        say(f"[resample]   {own:.4f} s own, {cum:.4f} s with callees, "
+            f"{calls} calls: {Path(path).name}:{line} {name}")
+
+
+def turn_numbers():
+    """The end-to-end numbers compared across trees by phase turns, from
+    the package's public entries only: the production slice (one warm-up,
+    then the median of 5 runs of each stage, as phase spread, and
+    s/frequency), the 30-map TbSpectra sweep (wall and stage sums, as
+    phase sweep), the LOS chain's resample_mas_los at chip_smoke.py phase
+    6's shapes (the median of 3 after a warm-up) and the harness in both
+    modes (chip_smoke.py phase 15)."""
+    from raytracinggrff_tpu_torch import harness
+    from raytracinggrff_tpu_torch.cli.tb_spectra import (run_sweep,
+                                                         sweep_frequencies)
+    from raytracinggrff_tpu_torch.mas.model import synthetic_mas_model
+    from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
+                                                   resample_mas_los)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        model = synthetic_mas_model(Path(tmp) / "corona", timestep=2)
+        cfg = RayEmissionConfig(**SLICE)
+        runs = [run_slice(model, cfg) for _ in range(6)][1:]
+        out["slice"] = {k: float(np.median([r[k] for r in runs]))
+                        for k in STAGES}
+        out["slice"]["s_per_frequency"] = out["slice"]["wall"] / cfg.nfreq
+        sweep_model = synthetic_mas_model(Path(tmp) / "corona_sweep")
+        timings = []
+        t0 = time.perf_counter()
+        run_sweep(sweep_model, sweep_frequencies(), Path(tmp) / "mfs",
+                  n_pix=128, phi0_offset=-140.0, device="cuda",
+                  timings=timings, verbose=False)
+        torch.cuda.synchronize()
+        out["sweep"] = {"wall": time.perf_counter() - t0, **{
+            k: sum(t[k] for t in timings)
+            for k in ("resample", "trace", "transfer", "finish")}}
+        los_model = synthetic_mas_model(Path(tmp) / "corona_los")
+        los = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            resample_mas_los(los_model, n_pix=128, x_range=(-1.44, 1.44),
+                             y_range=(-1.44, 1.44), n_z=400, dz0=3e-4,
+                             phi0_offset=24.0, verbose=False, device="cuda")
+            torch.cuda.synchronize()
+            los.append(time.perf_counter() - t0)
+        out["los_sampling"] = float(np.median(los[1:]))
+    for mode in ([], ["--pipeline"]):
+        res = harness.main(["--repeat", "3", *mode])
+        out[res["metric"]] = res["value"]
+    return out
+
+
+def phase_turns():
+    """turn_numbers in the parent tree and in this one, in turns
+    (in_trees), and each number's ratio this / parent."""
+    runs = collections.defaultdict(list)
+    for turn, (label, tree, res) in enumerate(in_trees("turn_numbers")):
+        runs[label].append(res)
+        say(f"[turns] turn {turn} ({label}, {tree}): {json.dumps(res)}")
+    flat = {}
+    for label, results in runs.items():
+        for res in results:
+            for key, val in res.items():
+                for k, v in (val.items() if isinstance(val, dict)
+                             else [("", val)]):
+                    flat.setdefault((key, k), {}).setdefault(
+                        label, []).append(v)
+    for (key, k), by in flat.items():
+        line = f"[turns] {key}{' ' + k if k else ''}: this " + ", ".join(
+            f"{v:.6g}" for v in by["this"])
+        if "parent" in by:
+            line += (", parent " + ", ".join(f"{v:.6g}" for v in by["parent"])
+                     + f"; this / parent "
+                     f"{np.mean(by['this']) / np.mean(by['parent']):.4f}")
+        say(line)
 
 
 def main(argv=None):
@@ -586,6 +808,10 @@ def main(argv=None):
             phase_floor({name: libs[name] for name in ("shipped", "fma")})
         if "fold" in phases:
             phase_fold()
+        if "resample" in phases:
+            phase_resample()
+        if "turns" in phases:
+            phase_turns()
     say(f"nvidia-smi: {smi_line()}")
     return 0
 

@@ -9,9 +9,9 @@
 //   rgrff_fold_records folds one trace segment's records (rps, 8, n_rays),
 //       rows [x, y, z, S, ne, te, b, cos_theta], into the carry, taking
 //       each record's validity and ds from consecutive positions
-//       (sampler.record_step). It replaces the JAX pipeline's per-segment
-//       scan stream_seg (raytracinggrff_tpu/pipeline.py:377-396, jax.jit
-//       around lax.scan).
+//       (ops/los_scans.record_step). It replaces the JAX pipeline's
+//       per-segment scan stream_seg (raytracinggrff_tpu/pipeline.py:377-396,
+//       jax.jit around lax.scan).
 //   rgrff_fold_voxels folds (Nz, n_pix) voxel arrays that already hold ds,
 //       the validity and the source areas, with an optional per-voxel theta
 //       and mechanism mask. It replaces _grff_transfer_jit
@@ -620,7 +620,7 @@ __global__ void __launch_bounds__(kThreads) fold_records_kernel(
     const Record c = next;
     if (r0 + G < p.n_steps)
       next = load_record(recs, n, ray, r0 + G + grp.j, p.n_steps, theta_los);
-    // sampler.record_step: valid where the position and S are finite and
+    // los_scans.record_step: valid where the position and S are finite and
     // S > 0 (and, with theta from row 7, cos theta is finite); ds from the
     // last valid position: the highest valid lane below this one, else the
     // position carried from the previous chunk

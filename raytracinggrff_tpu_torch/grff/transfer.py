@@ -16,7 +16,8 @@ integration and the emergent intensity is taken after the last voxel.
 voxels of a batch through it (ops/transfer_fold.fold_voxels, a CUDA kernel
 on the card), and `get_mw`/`get_mw_slice` are the GET_MW entry
 points (script/synthetic_FF_map_single_thread.py:27-35,
-script/resample_with_ray_tracing.py:400-466), with the DEM mode.
+script/resample_with_ray_tracing.py:400-466), with the DEM mode (its
+recurrence over voxels ops/los_scans.dem_scan, a CUDA kernel on the card).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from ..constants import AU_CM, C_CGS, FB_COEF, FPE_COEF, KB_CGS, SFU2CGS
+from ..ops.los_scans import dem_scan
 from .physics import (KAPPA_FF_COEF, KAPPA_FF_EXACT_COEF, O_MODE, X_MODE,
                       dem_freefree_moments, freefree_kappa,
                       gyroresonance_kappa, neutral_hydrogen_kappa,
@@ -339,17 +341,12 @@ def _grff_transfer_dem(ds, te, ne, b, theta_rad, sarea, mech, t_grid, dem,
                  / torch.clamp(tau_ff + tau_th, min=1e-30))
         src = src_t * src_coef * area
         evan = m & (n2 <= 0.0)
-        f = torch.zeros(freqs.shape[0], dtype=f32, device=device)
-        t_sum = torch.zeros_like(f)
-        for k in range(tau.shape[0]):
-            f = f * torch.exp(-tau[k]) + torch.where(
-                m[k], src[k] * -torch.expm1(-tau[k]), 0.0)
-            f = torch.where(evan[k], 0.0, f)
-            t_sum = torch.where(evan[k], torch.inf, t_sum + tau[k])
-        return f, t_sum
+        return tau, src, evan
 
-    f_o, t_o = mode(O_MODE)
-    f_x, t_x = mode(X_MODE)
+    # the recurrence over voxels: a CUDA kernel on the card
+    tau, src, evan = (torch.stack(a) for a in zip(mode(O_MODE),
+                                                  mode(X_MODE)))
+    (f_o, t_o), (f_x, t_x) = dem_scan(tau, src, evan, valid)
     return f_o, f_x, t_o, t_x
 
 

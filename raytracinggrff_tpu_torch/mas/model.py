@@ -3,22 +3,23 @@
 A self-contained reader (mas/hdf4.py, or h5py for .h5 files) and a
 nonuniform trilinear interpolator in MAS spherical coordinates (phi
 periodic, theta and r weights clamped to the mesh, r outside the mesh ->
-NaN), as in raytracinggrff_tpu/mas/model.py. Only files named
-{var}\\d{3}.hdf (or .h5/.hdf5) are used (build_rays.py:48-66).
+NaN), as in raytracinggrff_tpu/mas/model.py; the interpolator and the cube
+resample are ops/resample.py's (a CUDA kernel each on the card, the plain
+torch version on the CPU). Only files named {var}\\d{3}.hdf (or
+.h5/.hdf5) are used (build_rays.py:48-66).
 """
 
 from __future__ import annotations
 
-import math
 import re
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..constants import MAS_UNITS, R_MIN
-from ..coords import image_xyz_to_mas_sph
+from ..constants import MAS_UNITS
 from ..grids import UniformGrid
+from ..ops import resample
 from .hdf4 import read_hdf4_sds, write_hdf4_sds
 
 
@@ -93,11 +94,13 @@ class MASVariable:
         broadcast to one shape; r in R_sun, angles in radians) as a float32
         tensor on `device`: phi periodic, theta clamped to the mesh, r
         outside the mesh -> NaN (the reference masks r < R_MIN before
-        sampling anyway, build_rays.py:96)."""
+        sampling anyway, build_rays.py:96); ops/resample.sample_sph, one
+        kernel launch on a card."""
         def q(a):
             return torch.as_tensor(a, dtype=torch.float32, device=device)
-        return _interp_sph(*self.device_arrays(device), q(r_q), q(colat_q),
-                           q(phi_q))
+        queries = torch.broadcast_tensors(q(r_q), q(colat_q), q(phi_q))
+        return resample.sample_sph(*self.device_arrays(device),
+                                   *(a.contiguous() for a in queries))
 
     def sample_at_coords(self, lon_deg, lat_deg, r_rsun, device="cuda"):
         """psipy-compatible signature: longitude and latitude in degrees,
@@ -107,48 +110,6 @@ class MASVariable:
         lon = np.deg2rad(np.asarray(lon_deg))
         colat = np.pi / 2 - np.deg2rad(np.asarray(lat_deg))
         return self.sample_sph(r_rsun, colat, lon, device=device)
-
-
-def _axis_locate(ax, q):
-    """Cell index and clamped fraction on a 1D ascending nonuniform axis."""
-    n = ax.shape[0]
-    i = torch.clamp(torch.searchsorted(ax, q, right=True) - 1, 0, n - 2)
-    t = (q - ax[i]) / (ax[i + 1] - ax[i])
-    return i, torch.clamp(t, 0.0, 1.0)
-
-
-def _interp_sph(data, phi, theta, r, r_q, colat_q, phi_q):
-    """Trilinear sample of data (nphi+1, ntheta, nr) at spherical query
-    tensors of any shape; phi is periodic, r outside the mesh gives NaN."""
-    r_q, colat_q, phi_q = torch.broadcast_tensors(r_q, colat_q, phi_q)
-    shape = r_q.shape
-    phi_q = torch.remainder(phi_q, 2 * math.pi).reshape(-1)
-    r_q = r_q.reshape(-1)
-    colat_q = colat_q.reshape(-1)
-
-    ip, tp = _axis_locate(phi, phi_q)
-    it, tt = _axis_locate(theta, colat_q)
-    ir, tr = _axis_locate(r, r_q)
-
-    oob = (r_q < r[0] - 1e-9) | (r_q > r[-1] + 1e-9) | ~torch.isfinite(r_q)
-
-    ntheta, nr = data.shape[1], data.shape[2]
-    flat = data.reshape(-1)
-    base = (ip * ntheta + it) * nr + ir
-
-    def take(off):
-        return flat[base + off]
-
-    sp = ntheta * nr
-    st = nr
-    c00 = take(0) * (1 - tp) + take(sp) * tp
-    c10 = take(st) * (1 - tp) + take(sp + st) * tp
-    c01 = take(1) * (1 - tp) + take(sp + 1) * tp
-    c11 = take(st + 1) * (1 - tp) + take(sp + st + 1) * tp
-    c0 = c00 * (1 - tt) + c10 * tt
-    c1 = c01 * (1 - tt) + c11 * tt
-    v = c0 * (1 - tr) + c1 * tr
-    return torch.where(oob, math.nan, v).reshape(shape)
 
 
 class MASModel:
@@ -222,29 +183,14 @@ def resample_var_to_cube(var: MASVariable, grid: UniformGrid,
                          chunk=16):
     """Resample a MAS variable onto the uniform cube with the reference's
     orientation cart_to_sph(x, -z, y, phi0) and the r >= R_MIN mask
-    (build_rays.py:69-125), in x-slabs of `chunk` planes to bound the
-    transient memory. fill_nan=None keeps NaN. Returns an (nx, ny, nz)
-    float32 tensor on `device`."""
-    data, phi, theta, r_ax = var.device_arrays(device)
-    f32 = torch.float32
-    xs, ys, zs = (torch.as_tensor(a, dtype=f32, device=device)
+    (build_rays.py:69-125): on a card one kernel launch
+    (ops/resample.resample_cube), on the CPU the plain version in x-slabs
+    of `chunk` planes to bound the transient memory. fill_nan=None keeps
+    NaN. Returns an (nx, ny, nz) float32 tensor on `device`."""
+    xs, ys, zs = (torch.as_tensor(a, dtype=torch.float32, device=device)
                   for a in grid.axes())
-    phi0 = torch.tensor(phi0_offset_deg, dtype=f32)
-    nx, ny, nz = grid.shape
-    out = torch.empty((nx, ny, nz), dtype=f32, device=device)
-    for x0 in range(0, nx, chunk):
-        xsl = xs[x0:x0 + chunk]
-        shape = (xsl.shape[0], ny, nz)
-        x = xsl[:, None, None].expand(shape)
-        y = ys[None, :, None].expand(shape)
-        z = zs[None, None, :].expand(shape)
-        r, colat, lon = image_xyz_to_mas_sph(x, y, z, phi0)
-        vals = _interp_sph(data, phi, theta, r_ax, r, colat, lon)
-        vals = torch.where(r >= R_MIN, vals, math.nan)
-        if fill_nan is not None:
-            vals = torch.where(torch.isfinite(vals), vals, float(fill_nan))
-        out[x0:x0 + chunk] = vals
-    return out
+    return resample.resample_cube(*var.device_arrays(device), xs, ys, zs,
+                                  phi0_offset_deg, fill_nan, chunk)
 
 
 def synthetic_mas_model(path, nphi=64, ntheta=55, nr=60, r_max=6.0,

@@ -6,7 +6,10 @@ with a plain C interface, built at first use into
 raytracinggrff_tpu_torch/_build/ (git-ignored) and named by a hash of the
 sources and flags, then loaded with ctypes. The parameter structs mirror
 those of the sources: _TraceParams for csrc/trace_segment.cu, _FoldParams
-for csrc/transfer_fold.cu, whose harmonic tables _harmonic_tables builds.
+for csrc/transfer_fold.cu, whose harmonic tables _harmonic_tables builds,
+_SphParams for csrc/resample_sph.cu, _ScanParams and _DemParams for
+csrc/los_scans.cu. launch() calls a C entry on the current stream and
+raises on its error code.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import tempfile
 from pathlib import Path
 
 import numpy as np
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -63,6 +67,26 @@ class _FoldParams(ctypes.Structure):
     """Mirror of struct FoldParams in csrc/transfer_fold.cu."""
     _fields_ = ([(name, ctypes.c_int) for name in FOLD_INT_FIELDS]
                 + [(name, ctypes.c_float) for name in FOLD_FLOAT_FIELDS])
+
+
+class _SphParams(ctypes.Structure):
+    """Mirror of struct SphParams in csrc/resample_sph.cu."""
+    _fields_ = ([("n", ctypes.c_longlong)]
+                + [(name, ctypes.c_int) for name in (
+                    "nphi", "ntheta", "nr", "nx", "ny", "nz", "fill_on")]
+                + [(name, ctypes.c_float) for name in (
+                    "lon_offset", "r_min", "fill")])
+
+
+class _ScanParams(ctypes.Structure):
+    """Mirror of struct ScanParams in csrc/los_scans.cu."""
+    _fields_ = [("n_rays", ctypes.c_longlong), ("n_rec", ctypes.c_int),
+                ("scale", ctypes.c_float)]
+
+
+class _DemParams(ctypes.Structure):
+    """Mirror of struct DemParams in csrc/los_scans.cu."""
+    _fields_ = [("nz", ctypes.c_int), ("nf", ctypes.c_int)]
 
 
 def _harmonic_tables(s_max):
@@ -140,6 +164,33 @@ def load_library(path):
     lib.rgrff_fold_voxels.argtypes = [ptr] * 15 + [
         ctypes.POINTER(_FoldParams), ptr]
     lib.rgrff_fold_voxels.restype = ctypes.c_int
+    # data, phi, theta, r, xs, ys, zs, out, params, stream
+    lib.rgrff_resample_cube.argtypes = [ptr] * 8 + [
+        ctypes.POINTER(_SphParams), ptr]
+    # data, phi, theta, r, r_q, colat_q, phi_q, out, params, stream
+    lib.rgrff_sample_sph.argtypes = [ptr] * 8 + [
+        ctypes.POINTER(_SphParams), ptr]
+    # pos, s, start, usable, valid, ds, params, stream
+    lib.rgrff_valid_ds.argtypes = [ptr] * 6 + [
+        ctypes.POINTER(_ScanParams), ptr]
+    # tau, src, evan, m, out, params, stream
+    lib.rgrff_dem_scan.argtypes = [ptr] * 5 + [
+        ctypes.POINTER(_DemParams), ptr]
+    for entry in ("rgrff_resample_cube", "rgrff_sample_sph",
+                  "rgrff_valid_ds", "rgrff_dem_scan"):
+        getattr(lib, entry).restype = ctypes.c_int
     lib.rgrff_error_string.argtypes = [ctypes.c_int]
     lib.rgrff_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch(entry, device, *args):
+    """Call the C entry `entry` of library() with `args` and the current
+    stream of the CUDA `device`; raise if it returns an error."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: "
+                           + lib.rgrff_error_string(err).decode())

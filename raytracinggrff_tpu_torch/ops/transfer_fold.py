@@ -8,7 +8,7 @@ grff/transfer.make_voxel_update:
     [x, y, z, S, ne, te, b, cos_theta]. A record is valid where its
     position and S are finite and S > 0 (with theta_los also where row 7
     is finite), and its ds is the distance from the ray's last valid
-    position in cm (sampler.record_step); with s_on its source area is S
+    position in cm (los_scans.record_step); with s_on its source area is S
     times the pixel area, and with theta_los row 7 sets its theta. It
     replaces the JAX pipeline's per-segment scan stream_seg
     (raytracinggrff_tpu/pipeline.py:377-396).
@@ -42,9 +42,9 @@ from ..grff import physics
 from ..grff.transfer import (MECH_FREEFREE, MECH_GYRORESONANCE,
                              MECH_NEUTRALS, make_voxel_update,
                              transfer_carry_init)
-from ..sampler import record_step
 from . import _build
 from ._build import _FoldParams, _harmonic_tables
+from .los_scans import record_step
 
 RECORD_ROWS = 8
 GAUNTS = ("dulk", "exact")
@@ -157,14 +157,7 @@ def _kernel_device(device, n, nf):
 def _launch(kind, device, *args):
     """Launch rgrff_fold_`kind` on the current stream of `device` and
     count it."""
-    lib = _build.library()
-    entry = f"rgrff_fold_{kind}"
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: "
-                           + lib.rgrff_error_string(err).decode())
+    _build.launch(f"rgrff_fold_{kind}", device, *args)
     LAUNCHES[kind] += 1
 
 
@@ -213,7 +206,7 @@ def fold_records_plain(recs, carry, prev, freqs, pixel_area_cm2,
                        mechanism=MECH_FREEFREE | MECH_NEUTRALS,
                        s_max=30, gaunt="dulk", s_on=False, theta_los=False):
     """fold_records in plain torch, record by record, on any device: the
-    ds/valid step of sampler.record_step and make_voxel_update."""
+    ds/valid step of los_scans.record_step and make_voxel_update."""
     update = make_voxel_update(freqs, pixel_area_cm2, theta_deg, mechanism,
                                s_max, gaunt)
     area32 = np.float32(pixel_area_cm2)

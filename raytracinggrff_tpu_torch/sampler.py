@@ -3,7 +3,8 @@ lengths, in torch (gpu_raytrace.py:632-759; raytracinggrff_tpu/sampler.py).
 
 The three fields share their corner gathers through one packed table, and
 ds is the distance between consecutive *valid* samples, anchored at the
-ray start (_compute_ds_from_valid, gpu_raytrace.py:473-486):
+ray start (_compute_ds_from_valid, gpu_raytrace.py:473-486), a scan that
+ops/los_scans.py runs (los_scans.record_step is its one step):
 
     valid_mask = all(isfinite(pos)) & isfinite(s) & (s > 0)
     ne/te/b: out-of-bounds or non-finite field value -> fill_ne/te/b
@@ -18,6 +19,7 @@ import torch
 
 from .constants import FILL_B, FILL_NE, FILL_TE, R_SUN_CM
 from .grids import UniformGrid
+from .ops.los_scans import valid_ds
 from .ops.trilinear import pack_fields, trilinear_packed
 
 
@@ -41,31 +43,14 @@ def pack_model_table(ne_cube, te_cube, b_cube, bvec=None):
     return pack_fields(ne_cube, te_cube, b_cube, *bvec)
 
 
-def record_step(pos, s, prev, scale, usable=None):
-    """One step of the ds scan: pos (n_rays, 3) and s (n_rays,) of a
-    record, prev (n_rays, 3) the last valid positions, scale R_sun in cm.
-    A record is valid where pos and s are finite, s > 0 and `usable` (if
-    given) holds. Returns (valid, ds, the new last valid positions)."""
-    valid = (torch.all(torch.isfinite(pos), dim=-1)
-             & torch.isfinite(s) & (s > 0.0))
-    if usable is not None:
-        valid = valid & usable
-    p_safe = torch.where(valid[:, None], pos, prev)
-    d = torch.sqrt(torch.sum((p_safe - prev) ** 2, dim=-1)) * scale
-    return valid, torch.where(valid, d, 0.0), p_safe
-
-
 def valid_and_ds(pos, s, ray_start, r_sun_cm=R_SUN_CM, usable=None):
     """The validity mask and ds of records pos (n_steps, n_rays, 3) and s
-    (n_steps, n_rays), scanned from ray_start (n_rays, 3)."""
-    scale = torch.tensor(r_sun_cm, dtype=torch.float32, device=pos.device)
-    prev = ray_start
-    valid = torch.empty_like(s, dtype=torch.bool)
-    ds = torch.empty_like(s)
-    for i in range(pos.shape[0]):
-        valid[i], ds[i], prev = record_step(
-            pos[i], s[i], prev, scale, None if usable is None else usable[i])
-    return valid, ds
+    (n_steps, n_rays), scanned from ray_start (n_rays, 3), with an optional
+    bool `usable` (n_steps, n_rays): ops/los_scans.valid_ds, a CUDA kernel
+    on the card and one los_scans.record_step a record on the CPU."""
+    return valid_ds(pos.contiguous(), s.contiguous(), ray_start.contiguous(),
+                    r_sun_cm,
+                    None if usable is None else usable.contiguous())
 
 
 def sample_model_with_rays(model_table, grid: UniformGrid, r_record, s_arr,

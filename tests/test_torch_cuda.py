@@ -1,6 +1,8 @@
-"""Kernel tests that need a CUDA card (the trace segment and the transfer
-folds); each skips without one. The file imports no jax, so it runs on a machine with PyTorch for
-CUDA alone (the repository's conftest.py imports jax, hence --noconftest):
+"""Kernel tests that need a CUDA card (the trace segment, the transfer
+folds, the MAS resample and spherical sampler, and the line-of-sight
+scans); each skips without one. The file imports no jax, so it runs on a
+machine with PyTorch for CUDA alone (the repository's conftest.py imports
+jax, hence --noconftest):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -522,3 +524,230 @@ def test_fold_wrappers_launch_nothing_for_no_rays(cuda):
     with pytest.raises(ValueError, match="at least one frequency"):
         tf.fold_records(recs, transfer_carry_init(8, 0, cuda), start,
                         freqs[:0], AREA)
+
+
+# --- the scene kernels: csrc/resample_sph.cu and csrc/los_scans.cu --------
+
+def _same(a, b):
+    """Kernel result a equals plain result b: equal NaN masks, and every
+    other entry equal (torch.equal)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+@pytest.fixture(scope="module")
+def mas_model(tmp_path_factory):
+    from raytracinggrff_tpu_torch.mas.model import (MASModel,
+                                                    synthetic_mas_model)
+    return MASModel(synthetic_mas_model(
+        tmp_path_factory.mktemp("mas") / "m", nphi=16, ntheta=13, nr=24))
+
+
+@pytest.mark.parametrize("n", [19, 64])
+@pytest.mark.parametrize("fill", [None, 0.0])
+@pytest.mark.parametrize("phi0", [0.0, -140.0])
+@pytest.mark.parametrize("var", ["rho", "br"])
+def test_resample_cube_kernel_matches_plain(cuda, mas_model, var, phi0, fill,
+                                            n):
+    """rgrff_resample_cube through resample_var_to_cube, one launch, equal
+    to resample_cube_plain (NaN masks and values)."""
+    from raytracinggrff_tpu_torch.mas.model import resample_var_to_cube
+    from raytracinggrff_tpu_torch.ops import resample
+    grid = UniformGrid.cube(2.5, n)
+    before = resample.LAUNCHES["cube"]
+    out = resample_var_to_cube(mas_model[var], grid, phi0, fill_nan=fill,
+                               device="cuda")
+    assert resample.LAUNCHES["cube"] == before + 1
+    axes = [torch.as_tensor(a, dtype=torch.float32, device=cuda)
+            for a in grid.axes()]
+    ref = resample.resample_cube_plain(
+        *mas_model[var].device_arrays(cuda), *axes, phi0, fill)
+    assert out.shape == (n, n, n)
+    assert _same(out, ref)
+    assert torch.isnan(ref).any() == (fill is None)
+
+
+@pytest.mark.parametrize("shape", [(1,), (37,), (300, 41)])
+def test_sample_sph_kernel_matches_plain(cuda, mas_model, shape):
+    """rgrff_sample_sph through MASVariable.sample_sph against
+    sample_sph_plain at random queries with NaN, r off the mesh on both
+    sides and phi outside [0, 2 pi)."""
+    from raytracinggrff_tpu_torch.ops import resample
+    rng = np.random.default_rng(len(shape) * 7 + shape[0])
+    f32 = np.float32
+    r = rng.uniform(0.9, 6.2, shape).astype(f32)
+    colat = rng.uniform(-0.1, np.pi + 0.1, shape).astype(f32)
+    phi = rng.uniform(-7.0, 13.0, shape).astype(f32)
+    flat = r.reshape(-1)
+    flat[:3] = [np.nan, 0.5, 7.0][:flat.size]
+    var = mas_model["t"]
+    before = resample.LAUNCHES["sph"]
+    out = var.sample_sph(r, colat, phi, device="cuda")
+    assert resample.LAUNCHES["sph"] == before + 1
+    ref = resample.sample_sph_plain(
+        *var.device_arrays(cuda),
+        *(torch.as_tensor(a, device=cuda) for a in (r, colat, phi)))
+    assert out.shape == shape and _same(out, ref)
+
+
+def test_sample_sph_kernel_takes_broadcast_queries(cuda, mas_model):
+    """MASVariable.sample_sph broadcasts its queries before the kernel,
+    as the plain version does."""
+    from raytracinggrff_tpu_torch.ops import resample
+    var = mas_model["rho"]
+    r = np.linspace(1.0, 5.0, 7, dtype=np.float32)[:, None]
+    phi = np.linspace(-1.0, 7.0, 5, dtype=np.float32)
+    out = var.sample_sph(r, np.float32(1.0), phi, device="cuda")
+    ref = resample.sample_sph_plain(
+        *var.device_arrays(cuda), torch.as_tensor(r, device=cuda),
+        torch.tensor(1.0, device=cuda), torch.as_tensor(phi, device=cuda))
+    assert out.shape == (7, 5) and _same(out, ref)
+
+
+def _scan_records(device, n_rec, n_rays, seed=0):
+    """Straight records (n_rec, n_rays, 3) with NaN and inf positions, NaN
+    and non-positive cross-sections, ray starts and a `usable` mask."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    start = rng.uniform(-1.0, 1.0, (n_rays, 3)).astype(f32)
+    dirs = rng.normal(size=(n_rays, 3)).astype(f32)
+    t = (np.arange(1, n_rec + 1, dtype=f32) * 0.02)[:, None, None]
+    pos = (start[None] + t * dirs[None]).astype(f32)
+    pos[::6, ::5, 1] = np.nan
+    pos[::11, ::7] = np.inf
+    s = rng.uniform(0.5, 2.0, (n_rec, n_rays)).astype(f32)
+    s[::5, ::3] = 0.0
+    s[::7, ::4] = -1.0
+    s[::9, ::2] = np.nan
+    usable = rng.uniform(size=(n_rec, n_rays)) > 0.2
+    return [torch.as_tensor(a, device=device)
+            for a in (pos, s, start, usable)]
+
+
+@pytest.mark.parametrize("with_usable", [False, True])
+@pytest.mark.parametrize("n_rays", [1, 37, 300])
+@pytest.mark.parametrize("n_rec", [1, 7, 50])
+def test_valid_ds_kernel_matches_plain(cuda, n_rec, n_rays, with_usable):
+    from raytracinggrff_tpu_torch.ops import los_scans
+    pos, s, start, usable = _scan_records(cuda, n_rec, n_rays, n_rec + n_rays)
+    mask = usable if with_usable else None
+    before = los_scans.LAUNCHES["valid_ds"]
+    got = los_scans.valid_ds(pos, s, start, usable=mask)
+    assert los_scans.LAUNCHES["valid_ds"] == before + 1
+    want = los_scans.valid_ds_plain(pos, s, start, usable=mask)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_valid_and_ds_takes_strided_records(cuda):
+    """sampler.valid_and_ds hands the kernel contiguous copies of strided
+    views, as _center_los passes them."""
+    from raytracinggrff_tpu_torch.ops import los_scans
+    from raytracinggrff_tpu_torch.sampler import valid_and_ds
+    pos, s, start, usable = _scan_records(cuda, 20, 16)
+    rows = torch.cat([pos, s[:, :, None]], dim=2).transpose(1, 2)
+    got = valid_and_ds(rows[:, 0:3].transpose(1, 2), rows[:, 3], start,
+                       usable=usable.T.contiguous().T)
+    want = los_scans.valid_ds_plain(pos, s, start, usable=usable)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("nf", [1, 3, 100])
+@pytest.mark.parametrize("nz", [0, 1, 50])
+def test_dem_scan_kernel_matches_plain(cuda, nz, nf):
+    from raytracinggrff_tpu_torch.ops import los_scans
+    rng = np.random.default_rng(nz * 1000 + nf)
+    f32 = np.float32
+    tau = (10 ** rng.uniform(-6, 1, (2, nz, nf))).astype(f32)
+    tau[:, ::4] = 0.0
+    src = rng.uniform(0.0, 5.0, (2, nz, nf)).astype(f32)
+    evan = rng.uniform(size=(2, nz, nf)) > 0.97
+    m = rng.uniform(size=nz) > 0.1
+    args = [torch.as_tensor(a, device=cuda) for a in (tau, src, evan, m)]
+    before = los_scans.LAUNCHES["dem"]
+    got = los_scans.dem_scan(*args)
+    assert los_scans.LAUNCHES["dem"] == before + 1
+    assert torch.equal(got, los_scans.dem_scan_plain(*args))
+
+
+@pytest.mark.parametrize("mech", [1, 3, 5])
+def test_get_mw_dem_mode_kernel_matches_plain(cuda, monkeypatch, mech):
+    """get_mw in DEM mode on the card launches the DEM scan once, and its
+    RL equals the RL with the plain recurrence; free-free, with
+    gyroresonance (B of 40-300 G) and with neutrals."""
+    from raytracinggrff_tpu_torch.grff import transfer
+    from raytracinggrff_tpu_torch.ops import los_scans
+    rng = np.random.default_rng(mech)
+    nz, nt, nf = 40, 30, 12
+    t_grid = np.logspace(4.5, 6.8, nt)
+    t_peak = 10 ** rng.uniform(5.2, 6.4, nz)
+    em = 10 ** rng.uniform(24.0, 26.0, nz)
+    prof = np.exp(-0.5 * (np.log(t_grid[:, None] / t_peak[None, :])
+                          / 0.5) ** 2)
+    w = np.gradient(t_grid)
+    dem = em[None, :] * prof / np.sum(w[:, None] * prof, axis=0)
+    parms = np.zeros((15, nz), order="F")
+    parms[0] = rng.uniform(5e8, 5e9, nz)
+    parms[1] = np.sum(w[:, None] * dem * t_grid[:, None], axis=0) / em
+    parms[2] = np.sqrt(em / parms[0])
+    parms[3] = rng.uniform(0.5, 4.0, nz) * (75.0 if mech & 2 else 1.0)
+    parms[4], parms[6], parms[7] = 70.0, mech, 30
+    args = (np.array([nz, nf, nt, 1, 0], np.int32),
+            np.array([AREA, 150e6, 0.05]), parms, t_grid,
+            np.asfortranarray(dem).ravel(order="F"))
+    before = los_scans.LAUNCHES["dem"]
+    rl = transfer.get_mw(*args, device="cuda")
+    assert los_scans.LAUNCHES["dem"] == before + 1
+    monkeypatch.setattr(transfer, "dem_scan", los_scans.dem_scan_plain)
+    assert np.array_equal(rl, transfer.get_mw(*args, device="cuda"))
+    assert np.all(np.isfinite(rl[5])) and np.all(rl[5] > 0)
+
+
+def test_scene_wrappers_refuse_what_the_kernels_do_not_take(cuda,
+                                                            mas_model):
+    """Wrong dtype, a non-contiguous tensor, a tensor on the CPU beside
+    CUDA ones and mismatched shapes are refused before any launch."""
+    from raytracinggrff_tpu_torch.ops import los_scans, resample
+    mesh = list(mas_model["rho"].device_arrays(cuda))
+    axes = [torch.linspace(-2, 2, 9, device=cuda)] * 3
+    counts = (dict(resample.LAUNCHES), dict(los_scans.LAUNCHES))
+    with pytest.raises(TypeError, match="float32"):
+        resample.resample_cube(mesh[0].double(), *mesh[1:], *axes)
+    with pytest.raises(ValueError, match="contiguous"):
+        resample.resample_cube(mesh[0].transpose(1, 2).contiguous()
+                               .transpose(1, 2), *mesh[1:], *axes)
+    with pytest.raises(ValueError, match="is on"):
+        resample.resample_cube(*mesh, axes[0].cpu(), *axes[1:])
+    with pytest.raises(ValueError, match="must be"):
+        resample.resample_cube(mesh[0][:-1].contiguous(), *mesh[1:], *axes)
+    q = torch.ones(4, 5, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        resample.sample_sph(*mesh, q.T, q.T.contiguous(), q.T.contiguous())
+    with pytest.raises(ValueError, match="one shape"):
+        resample.sample_sph(*mesh, q, q, q[:, :2].contiguous())
+    with pytest.raises(TypeError, match="float32"):
+        resample.sample_sph(*mesh, q.double(), q, q)
+    pos, s, start, usable = _scan_records(cuda, 5, 8)
+    with pytest.raises(TypeError, match="float32"):
+        los_scans.valid_ds(pos.double(), s, start)
+    with pytest.raises(TypeError, match="bool"):
+        los_scans.valid_ds(pos, s, start, usable=usable.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        los_scans.valid_ds(pos.transpose(0, 1).contiguous().transpose(0, 1),
+                           s, start)
+    with pytest.raises(ValueError, match="is on"):
+        los_scans.valid_ds(pos, s, start.cpu())
+    with pytest.raises(ValueError, match="must be"):
+        los_scans.valid_ds(pos, s[:, :4].contiguous(), start)
+    tau = torch.zeros(2, 6, 3, device=cuda)
+    evan = torch.zeros(2, 6, 3, dtype=torch.bool, device=cuda)
+    m = torch.ones(6, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError, match="bool"):
+        los_scans.dem_scan(tau, tau, evan.float(), m)
+    with pytest.raises(ValueError, match="is on"):
+        los_scans.dem_scan(tau, tau, evan, m.cpu())
+    with pytest.raises(ValueError, match="must be"):
+        los_scans.dem_scan(tau, tau, evan, m[:5])
+    with pytest.raises(ValueError, match="contiguous"):
+        los_scans.dem_scan(tau.transpose(1, 2).contiguous().transpose(1, 2),
+                           tau, evan, m)
+    assert (dict(resample.LAUNCHES), dict(los_scans.LAUNCHES)) == counts

@@ -15,6 +15,7 @@ from raytracinggrff_tpu.pipeline import prepare_cubes as jax_prepare
 from raytracinggrff_tpu_torch.grids import UniformGrid
 from raytracinggrff_tpu_torch.mas import hdf4 as phdf4
 from raytracinggrff_tpu_torch.mas import model as pmodel
+from raytracinggrff_tpu_torch.ops import resample
 from raytracinggrff_tpu_torch.pipeline import prepare_cubes
 
 torch.set_num_threads(1)
@@ -81,8 +82,8 @@ def test_interp_sph_matches_jax(models):
     q[0][:3] = [np.nan, 0.5, 7.0]          # NaN and both r out of range
     ref = np.asarray(jmodel._interp_sph(*var_j.device_arrays(),
                                         *map(jnp.asarray, q)))
-    out = pmodel._interp_sph(*var_p.device_arrays("cpu"),
-                             *map(torch.as_tensor, q)).numpy()
+    out = resample.sample_sph_plain(*var_p.device_arrays("cpu"),
+                                    *map(torch.as_tensor, q)).numpy()
     np.testing.assert_array_equal(np.isnan(out), np.isnan(ref))
     assert np.isnan(out[:3]).all()
     ok = ~np.isnan(ref)
