@@ -96,15 +96,18 @@ Phases:
      alone timed both ways with its bound
  18. the scene kernels (csrc/resample_sph.cu, csrc/los_scans.cu) against
      their plain versions: (a) the cube resample of the synthetic model's
-     five variables at 128^3 (phi0 0) and at the sweep's largest set,
-     576^3 at extent 1.5 (phi0 -140), with fill None and 0: NaN masks
-     equal and every other voxel within RESAMPLE_ULP_BAR ulps; the first
-     variable timed at each size; prepare_cubes' four cubes, and the
+     five variables in one launch at 128^3 (phi0 0) and at the sweep's
+     largest set, 576^3 at extent 1.5 (phi0 -140), and of a staggered
+     scene of its five variables at 128^3, with fill None and 0: every
+     variable's NaN mask equal and every other voxel within
+     RESAMPLE_ULP_BAR ulps; the five-variable launch and one variable's
+     launch timed at each size; prepare_cubes' four cubes, and the
      production map from kernel cubes against the map from plain cubes
      under the map bars; (b) resample_mas_los at phase 6's shapes through
      the spherical sampler and the plain one (Ne, Te, B as in (a)), the
-     sampler alone timed; (c) the ds scan on the canonical scene's first
-     segment (65,536 rays x 64 records), with and without a `usable` mask,
+     sampler's five-variable launch and one variable's timed; (c) the ds
+     scan on the canonical scene's first segment (65,536 rays x 64
+     records), with and without a `usable` mask,
      and pipeline._center_los with and without cos theta: valid and ds
      equal (torch.equal), the scan timed; (d) get_mw in DEM mode (200
      voxels, 100 frequencies, 50 temperatures), free-free and with
@@ -114,8 +117,8 @@ Each path that traces rays runs with the launch counts set to 0 just
 before it and checks them against its segment count just after: the
 trace kernel's and the record fold's, one launch each a segment; a LOS
 chain's synthetic_ff launches the voxel fold once. Every prepare_cubes
-(phases 4, 7, 10, 16, 17 and 18) launches the resample once a variable,
-resample_mas_los (phases 6 and 18) the spherical sampler once a variable,
+(phases 4, 7, 10, 16, 17 and 18) launches the resample once for its five
+variables, resample_mas_los (phases 6 and 18) the spherical sampler once,
 bench's LOS sampling (phase 11) the ds scan once a sampling, and get_mw
 in DEM mode the DEM scan once.
 The last lines are one JSON object listing the kernels, the card's name
@@ -591,7 +594,7 @@ def phase_main(out, tmp):
         launches = trace_segment.launches
         assert launches == n_seg == timings["segments"], (launches, n_seg)
         folds = check_folds("4", "records", n_seg)
-        resamples = check_kernel("4", "resample", "cube", 5)
+        resamples = check_kernel("4", "resample", "cube", 1)
         rate = 256 * 256 * steps / timings["trace"]
         say(f"[4] run {run}: wall {wall:.3f} s; resample "
             f"{timings['resample']:.4f} s, trace {timings['trace']:.4f} s "
@@ -748,7 +751,7 @@ def phase_los(tmp, n_pix=128, device="cuda"):
                            y_range=(-1.44, 1.44), n_z=400, dz0=3e-4,
                            phi0_offset=24.0, verbose=False, device=device)
     t1 = time.perf_counter()
-    samples = check_kernel("6", "resample", "sph", 5, device)
+    samples = check_kernel("6", "resample", "sph", 1, device)
     em = synthetic_ff(los, 450e6, 4, 0.1, verbose=False, device=device)
     t2 = time.perf_counter()
     folds = check_folds("6", "voxels", 1, device)
@@ -788,7 +791,7 @@ def phase_gyro(tmp, n_pix=256, n_steps=5000, grid_n=128, device="cuda"):
     wall = time.perf_counter() - t0
     launches = trace_segment.launches
     check_folds("7", "records", n_segments(cfg), device)
-    check_kernel("7", "resample", "cube", 5, device)
+    check_kernel("7", "resample", "cube", 1, device)
     say(f"[7] gyroresonance map {n_pix}^2 x {n_steps} steps x {grid_n}^3: "
         f"wall {wall:.3f} s; resample {timings['resample']:.4f} s, trace "
         f"{timings['trace']:.4f} s, transfer {timings['transfer']:.4f} s, "
@@ -894,9 +897,9 @@ def phase_sweep(tmp, indices=SWEEP_INDICES, compare=SWEEP_INDICES,
     assert launches == segments, (launches, segments)
     check_folds("10", "records", segments, device)
     sets = {(t["grid_n"], round(t["grid_extent"], 6)) for t in timings}
-    resamples = check_kernel("10", "resample", "cube", 5 * len(sets), device)
-    say(f"[10] resample launches {resamples} = 5 variables x {len(sets)} "
-        f"cube set(s)")
+    resamples = check_kernel("10", "resample", "cube", len(sets), device)
+    say(f"[10] resample launches {resamples} = {len(sets)} cube set(s), one "
+        f"launch for the five variables of each")
     assert len(firsts) == len(timings), (len(firsts), len(timings))
     for i, t, row in zip(indices, timings, rows):
         peak = ("not measured on the CPU" if t["peak_bytes"] is None
@@ -1456,7 +1459,7 @@ def phase_series(tmp, device="cuda", **overrides):
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         resample = time.perf_counter() - t0
-        check_kernel("16", "resample", "cube", 5, device)
+        check_kernel("16", "resample", "cube", 1, device)
         npz = Path(tmp) / f"series_{i}.npz"
         timings = {}
         reset_counts()
@@ -1761,7 +1764,7 @@ def phase_fold(out, tmp, los6, device="cuda", n_pix=256, n_steps=5000,
                                    b0_gauss=50.0)
     gr_cubes = prepare_cubes(MASModel(gr_model), grid, 0.0, verbose=False,
                              keep_bvec=True, device=device)
-    check_kernel("17", "resample", "cube", 10, device)
+    check_kernel("17", "resample", "cube", 2, device)
     sizes = dict(SLICE, n_pix=n_pix, n_steps=n_steps, grid_n=grid_n)
     cfg = RayEmissionConfig(**sizes)
     cfg_gr = RayEmissionConfig(**dict(sizes, mechanism=7, theta_mode="los"))
@@ -1817,16 +1820,16 @@ def plain_scenes():
     from raytracinggrff_tpu_torch import sampler
     from raytracinggrff_tpu_torch.grff import transfer
     from raytracinggrff_tpu_torch.ops import los_scans, resample
-    saved = (resample.resample_cube, resample.sample_sph, sampler.valid_ds,
-             transfer.dem_scan)
-    resample.resample_cube = resample.resample_cube_plain
-    resample.sample_sph = resample.sample_sph_plain
+    saved = (resample.resample_cubes, resample.sample_sph_many,
+             sampler.valid_ds, transfer.dem_scan)
+    resample.resample_cubes = resample.resample_cubes_plain
+    resample.sample_sph_many = resample.sample_sph_many_plain
     sampler.valid_ds = los_scans.valid_ds_plain
     transfer.dem_scan = los_scans.dem_scan_plain
     try:
         yield
     finally:
-        (resample.resample_cube, resample.sample_sph, sampler.valid_ds,
+        (resample.resample_cubes, resample.sample_sph_many, sampler.valid_ds,
          transfer.dem_scan) = saved
 
 
@@ -1903,6 +1906,11 @@ def sweep_cube_sets():
 # (its index 29, 800 MHz): (grid_n, grid_extent, phi0)
 RESAMPLE_SETS = ((128, 3.0, 0.0), (576, 1.5, -140.0))
 MAS_VARIABLES = ("rho", "t", "br", "bt", "bp")
+# device ms of one variable's resample at RESAMPLE_SETS' sizes and of one
+# variable's sample at phase 6's 6,553,600 points in the one-variable-a-
+# launch design that came before the scene launch (a thread a voxel, axes
+# searched in global memory; NVIDIA H100 80GB HBM3 at 700 W, PERF.md)
+ONE_VARIABLE_DESIGN_MS = {128: 0.0419, 576: 3.4342, "sample": 0.0998}
 
 
 def resample_bound(arrays, n):
@@ -1911,6 +1919,22 @@ def resample_bound(arrays, n):
     arrays and its three axes read once."""
     nbytes = 4 * (n ** 3 + sum(a.numel() for a in arrays) + 3 * n)
     return bound(RESAMPLE_FLOPS * n ** 3, nbytes)
+
+
+def sample_bound(variables, n):
+    """Least time for one launch that samples `variables`, (data, phi,
+    theta, r) tuples, at n points: SAMPLE_FLOPS a variable and point, the
+    three queries read once, one sample written a variable and point, and
+    each distinct array and axis read once."""
+    arrays = {a.data_ptr(): a.numel() for v in variables for a in v}
+    nbytes = 4 * (3 * n + len(variables) * n + sum(arrays.values()))
+    return bound(SAMPLE_FLOPS * n * len(variables), nbytes)
+
+
+def scene_bound(bounds):
+    """The bound of a scene's launch: the sum of its variables' (ms,
+    kind), the kind of the largest."""
+    return (sum(ms for ms, _ in bounds), max(bounds)[1])
 
 
 def time_kernel(kernel, plain, reps=20):
@@ -1932,53 +1956,96 @@ def kernel_entry(tag, what, times, bnd, absd):
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=absd)
 
 
+def staggered_scene(model, device="cuda"):
+    """The synthetic model's five variables on a staggered mesh, as a MAS
+    run staggers them: rho and t on the model's mesh, br on its r
+    half-steps, bt on its theta half-steps, bp on its phi half-steps (each
+    array cut to its mesh's shape)."""
+    from raytracinggrff_tpu_torch.mas.model import scene_arrays
+
+    def half(a):
+        return 0.5 * (a[:-1] + a[1:])
+
+    variables = [model[v] for v in MAS_VARIABLES]
+    scene = scene_arrays(variables, device)
+    (data_r, phi, theta, r), (data_t, *_), (data_p, *_) = (
+        scene[2], scene[3], scene[4])
+    phi_h = half(phi)
+    phi_h = torch.cat([phi_h, phi_h[:1] + np.float32(2 * np.pi)])
+    scene[2] = (data_r[:, :, :-1].contiguous(), phi, theta, half(r))
+    scene[3] = (data_t[:, :-1].contiguous(), phi, half(theta), r)
+    scene[4] = (data_p, phi_h, theta, r)
+    return scene
+
+
 def phase_resample(out, tmp, device="cuda", sets=RESAMPLE_SETS,
                    names=MAS_VARIABLES, map_pix=256, map_steps=5000):
-    """Phase 18 (a): rgrff_resample_cube against resample_cube_plain on
-    the synthetic model's variables `names` at each (grid_n, extent, phi0)
-    of `sets`, with fill_nan None and 0.0 (hold_floats, RESAMPLE_ULP_BAR),
-    the first variable timed at each size (the kernels line takes the
-    first set's time: the production map's); then the production map (SLICE
-    at map_pix^2 x map_steps) from prepare_cubes through the kernel against
+    """Phase 18 (a): rgrff_resample_cube against resample_cube_plain: the
+    synthetic model's variables `names` in one launch at each (grid_n,
+    extent, phi0) of `sets`, and a staggered scene of its five variables
+    (staggered_scene) at the first set, each with fill_nan None and 0.0,
+    every variable's cube held to its plain cube (hold_floats,
+    RESAMPLE_ULP_BAR); the scene's launch timed at each size beside the
+    first variable's launch alone (the kernels line takes the first set's
+    scene: the production map's); then prepare_cubes (one launch) and the
+    production map (SLICE at map_pix^2 x map_steps) from its cubes against
     the map from the plain cubes, under the map bars."""
     from raytracinggrff_tpu_torch.grids import UniformGrid
-    from raytracinggrff_tpu_torch.mas.model import (MASModel,
+    from raytracinggrff_tpu_torch.mas.model import (MASModel, scene_arrays,
                                                     synthetic_mas_model)
     from raytracinggrff_tpu_torch.ops import resample
     from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
                                                    prepare_cubes,
                                                    run_ray_tracing_emission)
     model = MASModel(synthetic_mas_model(Path(tmp) / "corona_rs"))
+    scene = scene_arrays([model[v] for v in names], device)
     worst, entry = 0.0, None
-    for n, extent, phi0 in sets:
+    cases = [(f"{len(names)} variables", scene, *sets[0])]
+    if len(names) == len(MAS_VARIABLES):
+        cases.append(("staggered scene", staggered_scene(model, device),
+                      *sets[0]))
+    cases += [(f"{len(names)} variables", scene, *s) for s in sets[1:]]
+    for what, variables, n, extent, phi0 in cases:
         grid = UniformGrid.cube(extent, n)
         axes = [torch.as_tensor(a, dtype=torch.float32, device=device)
                 for a in grid.axes()]
-        for v in names:
-            arrays = model[v].device_arrays(device)
-            for fill in (None, 0.0):
-                k = resample.resample_cube(*arrays, *axes, phi0, fill)
-                p = resample.resample_cube_plain(*arrays, *axes, phi0, fill)
+        for fill in (None, 0.0):
+            reset_counts()
+            k = resample.resample_cubes(variables, *axes, phi0, fill)
+            check_kernel("18", "resample", "cube", 1, device)
+            for v, (name, cube) in enumerate(zip(names, k)):
+                p = resample.resample_cube_plain(*variables[v], *axes, phi0,
+                                                 fill)
                 worst = max(worst, hold_floats(
-                    "18", f"(a) {v} on {n}^3 at extent {extent}, phi0 "
-                    f"{phi0}, fill {fill}", k, p, RESAMPLE_ULP_BAR))
-                del k, p
-            if v != names[0]:
-                continue
-            times = time_kernel(
-                lambda: resample.resample_cube(*arrays, *axes, phi0, None),
-                lambda: resample.resample_cube_plain(*arrays, *axes, phi0,
-                                                     None), reps=5)
-            timed = kernel_entry("18", f"(a) resample of {v} onto {n}^3",
-                                 times, resample_bound(arrays, n), worst)
-            entry = entry or timed     # the production map's set
+                    "18", f"(a) {what}, {name} on {n}^3 at extent {extent}, "
+                    f"phi0 {phi0}, fill {fill}", cube, p, RESAMPLE_ULP_BAR))
+                del p
+            del k
+        if what == "staggered scene":
+            continue
+        times = time_kernel(
+            lambda: resample.resample_cubes(variables, *axes, phi0, None),
+            lambda: resample.resample_cubes_plain(variables, *axes, phi0,
+                                                  None), reps=5)
+        bnd = scene_bound([resample_bound(a, n) for a in variables])
+        timed = kernel_entry("18", f"(a) one launch of {len(names)} "
+                             f"variables onto {n}^3", times, bnd, worst)
+        entry = entry or timed     # the production map's set
+        one = device_ms(lambda: resample.resample_cube(*variables[0], *axes,
+                                                       phi0, None), reps=5)
+        one_bnd = resample_bound(variables[0], n)[0]
+        say(f"[18] (a) one variable ({names[0]}) onto {n}^3 alone: "
+            f"{one:.4f} ms on the device (the one-variable design: "
+            f"{ONE_VARIABLE_DESIGN_MS.get(n, float('nan')):.4f} ms), bound "
+            f"{one_bnd:.4f} ms, {one_bnd / one:.4f} of it; the scene's "
+            f"launch {timed['ms'] / one:.3f} x one variable's")
     entry["max_abs_err"] = worst
     out["resample_cube"] = entry
 
     grid = UniformGrid.cube(3.0, 128)
     reset_counts()
     cubes_k = prepare_cubes(model, grid, 0.0, verbose=False, device=device)
-    check_kernel("18", "resample", "cube", 5, device)
+    check_kernel("18", "resample", "cube", 1, device)
     with plain_scenes():
         cubes_p = prepare_cubes(model, grid, 0.0, verbose=False,
                                 device=device)
@@ -1997,9 +2064,10 @@ def phase_resample(out, tmp, device="cuda", sets=RESAMPLE_SETS,
 
 def phase_sample(out, tmp, device="cuda", n_pix=128):
     """Phase 18 (b): resample_mas_los at the CLI defaults (phase 6's
-    shapes) with MASVariable.sample_sph through rgrff_sample_sph and
-    through sample_sph_plain: Ne, Te and B equal (hold_floats); then the
-    first variable's sample alone, timed both ways."""
+    shapes) with its five variables sampled in one launch of
+    rgrff_sample_sph and through sample_sph_plain: Ne, Te and B equal
+    (hold_floats); then that launch alone, timed both ways, and the first
+    variable's launch alone."""
     from raytracinggrff_tpu_torch.mas.model import synthetic_mas_model
     from raytracinggrff_tpu_torch.ops import resample
     from raytracinggrff_tpu_torch.pipeline import resample_mas_los
@@ -2008,11 +2076,11 @@ def phase_sample(out, tmp, device="cuda", n_pix=128):
               n_z=400, dz0=3e-4, phi0_offset=24.0, verbose=False,
               device=device)
     reset_counts()
-    with captured(resample, "sample_sph") as calls:
+    with captured(resample, "sample_sph_many") as calls:
         t0 = time.perf_counter()
         los_k = resample_mas_los(model, **kw)
         t_k = time.perf_counter() - t0
-    check_kernel("18", "resample", "sph", 5, device)
+    check_kernel("18", "resample", "sph", 1, device)
     with plain_scenes():
         t0 = time.perf_counter()
         los_p = resample_mas_los(model, **kw)
@@ -2025,13 +2093,19 @@ def phase_sample(out, tmp, device="cuda", n_pix=128):
             "18", f"(b) {key} (float64 of the float32 samples)",
             torch.as_tensor(los_k[key]).float(),
             torch.as_tensor(los_p[key]).float(), RESAMPLE_ULP_BAR))
-    args, _ = calls[0]
-    n = args[4].numel()
-    times = time_kernel(lambda: resample.sample_sph(*args),
-                        lambda: resample.sample_sph_plain(*args))
-    nbytes = 16 * n + 4 * sum(a.numel() for a in args[:4])
-    entry = kernel_entry("18", f"(b) sample_sph of rho at {n} points", times,
-                         bound(SAMPLE_FLOPS * n, nbytes), worst)
+    (variables, *queries), _ = calls[0]
+    n = queries[0].numel()
+    times = time_kernel(lambda: resample.sample_sph_many(variables, *queries),
+                        lambda: resample.sample_sph_many_plain(variables,
+                                                               *queries))
+    bnd = sample_bound(variables, n)
+    entry = kernel_entry("18", f"(b) one launch of {len(variables)} "
+                         f"variables at {n} points", times, bnd, worst)
+    one = device_ms(lambda: resample.sample_sph(*variables[0], *queries))
+    say(f"[18] (b) one variable at {n} points alone: {one:.4f} ms on the "
+        f"device (the one-variable design: "
+        f"{ONE_VARIABLE_DESIGN_MS['sample']:.4f} ms); the scene's launch "
+        f"{entry['ms'] / one:.3f} x one variable's")
     out["sample_sph"] = entry
 
 

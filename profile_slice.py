@@ -63,14 +63,20 @@ pass/fail checks of chip_smoke.py.
      device time at each group size G (1, 2, 4, 8 lanes a ray), each held
      equal to the shipped G's carry (torch.equal; rtol 1e-6 with
      gyroresonance).
-  9. resample: the layers of prepare_cubes on the host clock, each
-     followed by a device synchronize: the HDF4 read of the five
-     variables (a fresh MASModel), their upload with the grid axes, the
-     five cube resamples through the kernel (csrc/resample_sph.cu) or the
-     plain version, and _finalize_cubes; the two in turns, the median of
-     5 runs (3 for the sweep's sets) after a warm-up each, at 128^3 (the
-     production map's set) and at each of the TbSpectra sweep's nine cube
-     sets (256^3-576^3, phi0 -140).
+  9. resample: the scene kernels' device times (scene_kernel_times: the
+     five variables' resample at 128^3 and 576^3 and their sample at
+     chip_smoke.py phase 6's points, as the tree's pipeline launches them,
+     and one variable alone) in the parent tree and in this one, in the
+     turns parent, this, this, parent; then the layers of
+     prepare_cubes on the host clock, each followed by a device
+     synchronize: the HDF4 read of the five variables (a fresh MASModel),
+     their upload with the grid axes, the one launch that resamples the
+     five (csrc/resample_sph.cu) or the plain version, and
+     _finalize_cubes; the two in turns, the median of 5 runs (3 for the
+     sweep's sets) after a warm-up each, at 128^3 (the production map's
+     set) and at each of the TbSpectra sweep's nine cube sets
+     (256^3-576^3, phi0 -140); and the LOS chain's resample_mas_los under
+     cProfile.
  10. turns: the end-to-end numbers of the parent tree and of this one, in
      the turns parent, this, this, parent, each in a process of its own
      run from its tree (as phase fold): the production slice (the median
@@ -86,6 +92,7 @@ CUDA device it exits 1.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import os
 import re
@@ -592,11 +599,12 @@ def resample_layers(model_path, grid, phi0, kernel, bvec=False,
                     device="cuda"):
     """One prepare_cubes split into its layers, each on the host clock
     with the device drained after it: read (a fresh MASModel's five
-    variables, MASVariable.from_file), upload (device_arrays and the grid
-    axes), resample (the five cubes through ops/resample.resample_cube, or
-    resample_cube_plain with kernel False), finalize (_finalize_cubes, and
-    with bvec _bvec_image_cubes). Returns {layer: seconds}."""
-    from raytracinggrff_tpu_torch.mas.model import MASModel
+    variables, MASVariable.from_file), upload (mas/model.scene_arrays and
+    the grid axes), resample (the five cubes in one launch of
+    ops/resample.resample_cubes, or resample_cubes_plain with kernel
+    False), finalize (_finalize_cubes, and with bvec _bvec_image_cubes).
+    Returns {layer: seconds}."""
+    from raytracinggrff_tpu_torch.mas.model import MASModel, scene_arrays
     from raytracinggrff_tpu_torch.ops import resample
     from raytracinggrff_tpu_torch.pipeline import (_bvec_image_cubes,
                                                    _finalize_cubes)
@@ -609,13 +617,13 @@ def resample_layers(model_path, grid, phi0, kernel, bvec=False,
     names = ("rho", model.temperature_variable(), "br", "bt", "bp")
     variables = [model[v] for v in names]
     t.append(time.perf_counter())
-    arrays = [v.device_arrays(device) for v in variables]
+    arrays = scene_arrays(variables, device)
     axes = [torch.as_tensor(a, dtype=torch.float32, device=device)
             for a in grid.axes()]
     sync()
     t.append(time.perf_counter())
-    fn = resample.resample_cube if kernel else resample.resample_cube_plain
-    raw = [fn(*a, *axes, phi0, None) for a in arrays]
+    fn = resample.resample_cubes if kernel else resample.resample_cubes_plain
+    raw = fn(arrays, *axes, phi0, None)
     sync()
     t.append(time.perf_counter())
     cubes = _finalize_cubes(*raw)
@@ -627,15 +635,95 @@ def resample_layers(model_path, grid, phi0, kernel, bvec=False,
                     np.diff(t).tolist()))
 
 
+def scene_cases(model, many):
+    """{case: a call} of the scene kernels at chip_smoke.py phase 18's
+    shapes, through the tree's public wrappers (many: whether the tree has
+    resample_cubes and sample_sph_many): the synthetic `model`'s five
+    variables resampled onto each of chip_smoke.RESAMPLE_SETS and sampled
+    at phase 6's 6,553,600 points, as the tree's pipeline runs them ("five":
+    one launch with many, else five one-variable launches), and one
+    variable alone ("one")."""
+    from raytracinggrff_tpu_torch.grids import UniformGrid
+    from raytracinggrff_tpu_torch.mas import model as mas
+    from raytracinggrff_tpu_torch.ops import resample
+    from raytracinggrff_tpu_torch.pipeline import resample_mas_los
+    variables = [model[v] for v in chip_smoke.MAS_VARIABLES]
+    scene = (mas.scene_arrays(variables, "cuda") if many else
+             [v.device_arrays("cuda") for v in variables])
+    cases = {}
+    for n, extent, phi0 in chip_smoke.RESAMPLE_SETS:
+        axes = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                for a in UniformGrid.cube(extent, n).axes()]
+        if many:
+            cases[f"cube five {n}"] = functools.partial(
+                resample.resample_cubes, scene, *axes, phi0, None)
+        else:
+            cases[f"cube five {n}"] = functools.partial(
+                lambda axes, phi0: [resample.resample_cube(*v, *axes, phi0,
+                                                           None)
+                                    for v in scene], axes, phi0)
+        cases[f"cube one {n}"] = functools.partial(
+            resample.resample_cube, *scene[0], *axes, phi0, None)
+    name = "sample_sph_many" if many else "sample_sph"
+    with chip_smoke.captured(resample, name) as calls:
+        resample_mas_los(model.path, n_pix=128, x_range=(-1.44, 1.44),
+                         y_range=(-1.44, 1.44), n_z=400, dz0=3e-4,
+                         phi0_offset=24.0, verbose=False, device="cuda")
+    if many:
+        (arrays, *queries), _ = calls[0]
+        cases["sph five"] = functools.partial(resample.sample_sph_many,
+                                              arrays, *queries)
+    else:
+        arrays = [c[0][:4] for c in calls]
+        queries = calls[0][0][4:]
+        cases["sph five"] = lambda: [resample.sample_sph(*v, *queries)
+                                     for v in arrays]
+    cases["sph one"] = functools.partial(resample.sample_sph, *arrays[0],
+                                         *queries)
+    return cases
+
+
+def scene_kernel_times():
+    """Device ms (chip_smoke.device_ms) of each of scene_cases in this
+    process's package. Returns {case: ms}."""
+    from raytracinggrff_tpu_torch.mas import model as mas
+    from raytracinggrff_tpu_torch.ops import resample
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        model = mas.MASModel(mas.synthetic_mas_model(Path(tmp) / "corona"))
+        cases = scene_cases(model, hasattr(resample, "resample_cubes"))
+        for case, call in cases.items():
+            out[case] = chip_smoke.device_ms(call, reps=5)
+    return out
+
+
 def phase_resample(sets=None, device="cuda"):
-    """The layers of prepare_cubes (resample_layers) through the kernel and
-    through the plain version, in turns (plain, kernel, kernel, plain,
-    ...), the median of `reps` runs each after a warm-up: at 128^3 (phi0
-    0, the production map's set, 5 runs) and at each of the TbSpectra
-    sweep's nine cube sets (phi0 -140, 3 runs); or at `sets`, (grid_n,
-    extent, phi0, reps) each."""
+    """The scene kernels' device times in the parent tree and in this
+    one, in turns (in_trees of scene_kernel_times); then the layers
+    of prepare_cubes (resample_layers) through the kernel and through the
+    plain version, in turns (plain, kernel, kernel, plain, ...), the
+    median of `reps` runs each after a warm-up: at 128^3 (phi0 0, the
+    production map's set, 5 runs) and at each of the TbSpectra sweep's
+    nine cube sets (phi0 -140, 3 runs); or at `sets`, (grid_n, extent,
+    phi0, reps) each (and then no kernel times)."""
     from raytracinggrff_tpu_torch.grids import UniformGrid
     from raytracinggrff_tpu_torch.mas.model import synthetic_mas_model
+    if sets is None:
+        runs = collections.defaultdict(list)
+        for turn, (label, tree, times) in enumerate(in_trees(
+                "scene_kernel_times")):
+            runs[label].append(times)
+            say(f"[resample] turn {turn} ({label}, {tree}): "
+                + "; ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+        for case in runs["this"][-1]:
+            this = [r[case] for r in runs["this"]]
+            line = (f"[resample] {case}: this tree "
+                    f"{['%.4f' % t for t in this]} ms")
+            par = [r[case] for r in runs["parent"]]
+            if par:
+                line += (f", parent {['%.4f' % t for t in par]} ms, this / "
+                         f"parent {np.mean(this) / np.mean(par):.3f}")
+            say(line)
     sets = sets or [(128, 3.0, 0.0, 5)] + [
         (n, e, -140.0, 3) for n, e in chip_smoke.sweep_cube_sets()]
     with tempfile.TemporaryDirectory() as tmp:

@@ -178,6 +178,26 @@ def load_mas_var(model: MASModel, var_name: str) -> MASVariable:
     return model[var_name]
 
 
+def scene_arrays(variables, device):
+    """MASVariable.device_arrays of each of `variables` (data, phi, theta,
+    r), with an axis equal (np.array_equal) to one of an earlier variable
+    uploaded once and shared, as the same tensor: ops/resample's kernels
+    locate once on an axis that variables share."""
+    uploaded = {"phi": [], "theta": [], "r": []}
+
+    def axis(kind, a):
+        for b, tensor in uploaded[kind]:
+            if np.array_equal(a, b):
+                return tensor
+        tensor = torch.as_tensor(a, dtype=torch.float32, device=device)
+        uploaded[kind].append((a, tensor))
+        return tensor
+
+    return [(torch.as_tensor(v.data, dtype=torch.float32, device=device),
+             *(axis(kind, getattr(v, kind)) for kind in uploaded))
+            for v in variables]
+
+
 def resample_var_to_cube(var: MASVariable, grid: UniformGrid,
                          phi0_offset_deg=0.0, fill_nan=0.0, device="cuda",
                          chunk=16):

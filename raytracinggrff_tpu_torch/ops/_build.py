@@ -69,11 +69,22 @@ class _FoldParams(ctypes.Structure):
                 + [(name, ctypes.c_float) for name in FOLD_FLOAT_FIELDS])
 
 
+MAX_VARS = 5
+
+
 class _SphParams(ctypes.Structure):
-    """Mirror of struct SphParams in csrc/resample_sph.cu."""
-    _fields_ = ([("n", ctypes.c_longlong)]
+    """Mirror of struct SphParams in csrc/resample_sph.cu: a scene of up to
+    MAX_VARS variables and its distinct (phi, theta, r) axes."""
+    _fields_ = ([("n", ctypes.c_longlong),
+                 ("data", ctypes.c_void_p * MAX_VARS),
+                 ("out", ctypes.c_void_p * MAX_VARS),
+                 ("axis", (ctypes.c_void_p * MAX_VARS) * 3),
+                 ("axis_len", (ctypes.c_int * MAX_VARS) * 3),
+                 ("n_axes", ctypes.c_int * 3),
+                 ("var_axis", (ctypes.c_int * 3) * MAX_VARS),
+                 ("dims", (ctypes.c_int * 3) * MAX_VARS)]
                 + [(name, ctypes.c_int) for name in (
-                    "nphi", "ntheta", "nr", "nx", "ny", "nz", "fill_on")]
+                    "n_vars", "nx", "ny", "nz", "fill_on")]
                 + [(name, ctypes.c_float) for name in (
                     "lon_offset", "r_min", "fill")])
 
@@ -164,11 +175,11 @@ def load_library(path):
     lib.rgrff_fold_voxels.argtypes = [ptr] * 15 + [
         ctypes.POINTER(_FoldParams), ptr]
     lib.rgrff_fold_voxels.restype = ctypes.c_int
-    # data, phi, theta, r, xs, ys, zs, out, params, stream
-    lib.rgrff_resample_cube.argtypes = [ptr] * 8 + [
+    # xs, ys, zs, params, stream
+    lib.rgrff_resample_cube.argtypes = [ptr] * 3 + [
         ctypes.POINTER(_SphParams), ptr]
-    # data, phi, theta, r, r_q, colat_q, phi_q, out, params, stream
-    lib.rgrff_sample_sph.argtypes = [ptr] * 8 + [
+    # r_q, colat_q, phi_q, params, stream
+    lib.rgrff_sample_sph.argtypes = [ptr] * 3 + [
         ctypes.POINTER(_SphParams), ptr]
     # pos, s, start, usable, valid, ds, params, stream
     lib.rgrff_valid_ds.argtypes = [ptr] * 6 + [

@@ -7,19 +7,27 @@ theta, r) mesh, the phi axis padded with its periodic copy
 clamps the theta and r fractions to the mesh and gives NaN where r lies off
 the mesh:
 
-  * resample_cube samples it at the nodes of a uniform (nx, ny, nz) cube,
-    given by its three axes, with the reference's orientation
-    cart_to_sph(x, -z, y, phi0) and the r >= R_MIN mask, then fills the
-    non-finite values unless fill_nan is None. It replaces the JAX
-    package's _resample_cube_jit (raytracinggrff_tpu/mas/model.py:259-301).
-  * sample_sph samples it at query points (r, colat, lon). It replaces
-    _interp_sph_jit (raytracinggrff_tpu/mas/model.py:133-135).
+  * resample_cubes samples a scene of 1 to MAX_VARS variables, each given
+    as its (data, phi, theta, r) tensors, at the nodes of a uniform (nx,
+    ny, nz) cube, given by its three axes, with the reference's
+    orientation cart_to_sph(x, -z, y, phi0) and the r >= R_MIN mask, then
+    fills the non-finite values unless fill_nan is None: one cube a
+    variable. It replaces the JAX package's _resample_cube_jit
+    (raytracinggrff_tpu/mas/model.py:259-301), one call a variable;
+    resample_cube is the same for one variable.
+  * sample_sph_many samples a scene at query points (r, colat, lon), and
+    sample_sph one variable. They replace _interp_sph_jit
+    (raytracinggrff_tpu/mas/model.py:133-135).
 
-In JAX each is one jitted device program. Here each has a hand-written
-CUDA kernel, one thread a voxel or point, and a plain torch version.
-Dispatch is by device, as for the other kernels: CPU tensors run the plain
-version; CUDA tensors launch the kernel or raise. LAUNCHES counts the
-launches of each ('cube', 'sph').
+In JAX each variable is one jitted device program. Here a scene is one
+launch of a hand-written CUDA kernel, which computes each point's
+coordinates and locates once for all variables, and once for the
+variables that share an axis: the same tensor (mas/model.scene_arrays
+uploads an axis once for the variables whose axes are equal). Each has a
+plain torch version, one variable at a time. Dispatch is by device, as for
+the other kernels: CPU tensors run the plain version; CUDA tensors launch
+the kernel or raise. LAUNCHES counts the launches of each ('cube', 'sph'),
+one a scene.
 """
 
 from __future__ import annotations
@@ -33,10 +41,13 @@ import torch
 from ..constants import R_MIN
 from ..coords import image_xyz_to_mas_sph
 from . import _build
-from ._build import _SphParams
+from ._build import MAX_VARS, _SphParams
 
 # kernel launches of each entry, counted where the kernel is launched
 LAUNCHES = {"cube": 0, "sph": 0}
+# the shared memory a block of the kernels may use on an H100, which holds
+# the scene's distinct axes
+MAX_SHARED_BYTES = 232448
 
 
 def _axis_locate(ax, q):
@@ -104,6 +115,20 @@ def resample_cube_plain(data, phi, theta, r_ax, xs, ys, zs,
     return out
 
 
+def sample_sph_many_plain(variables, r_q, colat_q, phi_q):
+    """sample_sph_plain of each (data, phi, theta, r) of `variables` at the
+    same queries: one tensor a variable."""
+    return [sample_sph_plain(*v, r_q, colat_q, phi_q) for v in variables]
+
+
+def resample_cubes_plain(variables, xs, ys, zs, phi0_offset_deg=0.0,
+                         fill_nan=0.0, chunk=16):
+    """resample_cube_plain of each (data, phi, theta, r) of `variables`
+    onto the same cube: one cube a variable."""
+    return [resample_cube_plain(*v, xs, ys, zs, phi0_offset_deg, fill_nan,
+                                chunk) for v in variables]
+
+
 def _check(device, named, data, phi, theta, r):
     """Refuse what the kernels do not take: `named` (name, tensor) pairs
     and the mesh not float32, contiguous and on the CUDA `device`, or a
@@ -136,61 +161,121 @@ def _lon_offset(phi0_offset_deg):
     return float(phi0 * math.pi / 180.0)
 
 
-def resample_cube(data, phi, theta, r_ax, xs, ys, zs, phi0_offset_deg=0.0,
-                  fill_nan=0.0, chunk=16):
-    """Resample the MAS array data (nphi+1, ntheta, nr) on its axes phi,
-    theta, r_ax onto the uniform cube of axes xs, ys, zs (float32 tensors
-    on one device): cart_to_sph(x, -z, y, phi0_offset_deg), NaN where r <
+def _scene_device(variables):
+    """The device of a scene's tensors; refuses a scene of no variable."""
+    if not variables:
+        raise ValueError(f"a scene holds 1 to {MAX_VARS} variables, got 0")
+    return variables[0][0].device
+
+
+def _scene(device, named, variables):
+    """_SphParams of a scene: each (data, phi, theta, r) of `variables`
+    checked with the `named` tensors (_check), its array and sizes, and an
+    id for each of its axes, the same for the same tensor (its memory: the
+    same device address and length). Refuses more than MAX_VARS
+    variables, and axes beyond the shared memory."""
+    if len(variables) > MAX_VARS:
+        raise ValueError(f"a scene holds 1 to {MAX_VARS} variables, got "
+                         f"{len(variables)}")
+    p = _SphParams(n_vars=len(variables))
+    distinct = ([], [], [])
+    for v, (data, *axes) in enumerate(variables):
+        p.dims[v][:] = _check(device, named if v == 0 else (), data, *axes)
+        p.data[v] = data.data_ptr()
+        for k, ax in enumerate(axes):
+            key = (ax.data_ptr(), ax.shape[0])
+            if key not in distinct[k]:
+                distinct[k].append(key)
+            p.var_axis[v][k] = distinct[k].index(key)
+    for k, keys in enumerate(distinct):
+        p.n_axes[k] = len(keys)
+        for a, (ptr, n) in enumerate(keys):
+            p.axis[k][a], p.axis_len[k][a] = ptr, n
+    nbytes = 4 * sum(n for keys in distinct for _, n in keys)
+    if nbytes > MAX_SHARED_BYTES:
+        raise ValueError(f"the scene's distinct axes take {nbytes} bytes, "
+                         f"above the kernels' {MAX_SHARED_BYTES} bytes of "
+                         f"shared memory")
+    return p
+
+
+def resample_cubes(variables, xs, ys, zs, phi0_offset_deg=0.0, fill_nan=0.0,
+                   chunk=16):
+    """Resample each MAS array data (nphi+1, ntheta, nr) of `variables`,
+    (data, phi, theta, r_ax) tuples of 1 to MAX_VARS variables, each on its
+    own axes, onto the uniform cube of axes xs, ys, zs (float32 tensors on
+    one device): cart_to_sph(x, -z, y, phi0_offset_deg), NaN where r <
     R_MIN, non-finite values replaced by fill_nan unless it is None.
-    Returns an (nx, ny, nz) float32 tensor. CPU tensors run
-    resample_cube_plain (in x-slabs of `chunk` planes); CUDA tensors launch
-    the kernel, one launch a cube."""
-    device = data.device
+    Returns a list of (nx, ny, nz) float32 tensors, one a variable. CPU
+    tensors run resample_cubes_plain (in x-slabs of `chunk` planes); CUDA
+    tensors launch the kernel, one launch for the scene."""
+    variables = list(variables)
+    device = _scene_device(variables)
     if device.type == "cpu":
-        return resample_cube_plain(data, phi, theta, r_ax, xs, ys, zs,
-                                   phi0_offset_deg, fill_nan, chunk)
+        return resample_cubes_plain(variables, xs, ys, zs, phi0_offset_deg,
+                                    fill_nan, chunk)
     axes = [("xs", xs), ("ys", ys), ("zs", zs)]
-    nphi, ntheta, nr = _check(device, axes, data, phi, theta, r_ax)
+    p = _scene(device, axes, variables)
     if any(a.dim() != 1 for _, a in axes):
         raise ValueError("xs, ys and zs must be 1D")
     nx, ny, nz = (a.shape[0] for _, a in axes)
-    if max(nx, ny) > 65535:
+    if nx > 65535:
         raise ValueError(f"a {nx} x {ny} cube exceeds the kernel's grid")
-    out = torch.empty((nx, ny, nz), dtype=torch.float32, device=device)
-    params = _SphParams(
-        n=0, nphi=nphi, ntheta=ntheta, nr=nr, nx=nx, ny=ny, nz=nz,
-        fill_on=int(fill_nan is not None),
-        lon_offset=_lon_offset(phi0_offset_deg),
-        r_min=float(np.float32(R_MIN)),
-        fill=0.0 if fill_nan is None else float(fill_nan))
-    _build.launch("rgrff_resample_cube", device, data.data_ptr(),
-                  phi.data_ptr(), theta.data_ptr(), r_ax.data_ptr(),
-                  xs.data_ptr(), ys.data_ptr(), zs.data_ptr(),
-                  out.data_ptr(), ctypes.byref(params))
+    outs = [torch.empty((nx, ny, nz), dtype=torch.float32, device=device)
+            for _ in variables]
+    for v, out in enumerate(outs):
+        p.out[v] = out.data_ptr()
+    p.nx, p.ny, p.nz = nx, ny, nz
+    p.fill_on = int(fill_nan is not None)
+    p.lon_offset = _lon_offset(phi0_offset_deg)
+    p.r_min = float(np.float32(R_MIN))
+    p.fill = 0.0 if fill_nan is None else float(fill_nan)
+    _build.launch("rgrff_resample_cube", device, xs.data_ptr(),
+                  ys.data_ptr(), zs.data_ptr(), ctypes.byref(p))
     LAUNCHES["cube"] += 1
-    return out
+    return outs
+
+
+def resample_cube(data, phi, theta, r_ax, xs, ys, zs, phi0_offset_deg=0.0,
+                  fill_nan=0.0, chunk=16):
+    """Resample the MAS array data (nphi+1, ntheta, nr) on its axes phi,
+    theta, r_ax onto the uniform cube of axes xs, ys, zs: resample_cubes of
+    one variable. Returns an (nx, ny, nz) float32 tensor."""
+    return resample_cubes([(data, phi, theta, r_ax)], xs, ys, zs,
+                          phi0_offset_deg, fill_nan, chunk)[0]
+
+
+def sample_sph_many(variables, r_q, colat_q, phi_q):
+    """Trilinear sample of each MAS array data (nphi+1, ntheta, nr) of
+    `variables`, (data, phi, theta, r) tuples of 1 to MAX_VARS variables,
+    each on its own axes, at the query points r_q (R_sun), colat_q and
+    phi_q (radians), float32 tensors on one device: phi periodic, theta
+    clamped to the mesh, r off the mesh -> NaN. Returns a list of tensors
+    of the queries' shape, one a variable. CPU tensors run
+    sample_sph_many_plain, which broadcasts the queries; CUDA tensors
+    launch the kernel once, which takes three contiguous queries of one
+    shape."""
+    variables = list(variables)
+    device = _scene_device(variables)
+    if device.type == "cpu":
+        return sample_sph_many_plain(variables, r_q, colat_q, phi_q)
+    queries = [("r_q", r_q), ("colat_q", colat_q), ("phi_q", phi_q)]
+    p = _scene(device, queries, variables)
+    if not r_q.shape == colat_q.shape == phi_q.shape:
+        raise ValueError(f"queries must share one shape, got "
+                         f"{[tuple(q.shape) for _, q in queries]}")
+    outs = [torch.empty_like(r_q) for _ in variables]
+    for v, out in enumerate(outs):
+        p.out[v] = out.data_ptr()
+    p.n = r_q.numel()
+    _build.launch("rgrff_sample_sph", device, r_q.data_ptr(),
+                  colat_q.data_ptr(), phi_q.data_ptr(), ctypes.byref(p))
+    LAUNCHES["sph"] += 1
+    return outs
 
 
 def sample_sph(data, phi, theta, r, r_q, colat_q, phi_q):
     """Trilinear sample of the MAS array data (nphi+1, ntheta, nr) on its
-    axes phi, theta, r at the query points r_q (R_sun), colat_q and phi_q
-    (radians), float32 tensors on one device: phi periodic, theta clamped
-    to the mesh, r off the mesh -> NaN. CPU tensors run sample_sph_plain,
-    which broadcasts the queries; CUDA tensors launch the kernel, which
-    takes three contiguous queries of one shape. Returns their shape."""
-    device = data.device
-    if device.type == "cpu":
-        return sample_sph_plain(data, phi, theta, r, r_q, colat_q, phi_q)
-    queries = [("r_q", r_q), ("colat_q", colat_q), ("phi_q", phi_q)]
-    nphi, ntheta, nr = _check(device, queries, data, phi, theta, r)
-    if not r_q.shape == colat_q.shape == phi_q.shape:
-        raise ValueError(f"queries must share one shape, got "
-                         f"{[tuple(q.shape) for _, q in queries]}")
-    out = torch.empty_like(r_q)
-    params = _SphParams(n=r_q.numel(), nphi=nphi, ntheta=ntheta, nr=nr)
-    _build.launch("rgrff_sample_sph", device, data.data_ptr(),
-                  phi.data_ptr(), theta.data_ptr(), r.data_ptr(),
-                  r_q.data_ptr(), colat_q.data_ptr(), phi_q.data_ptr(),
-                  out.data_ptr(), ctypes.byref(params))
-    LAUNCHES["sph"] += 1
-    return out
+    axes phi, theta, r at the query points r_q, colat_q and phi_q:
+    sample_sph_many of one variable. Returns the queries' shape."""
+    return sample_sph_many([(data, phi, theta, r)], r_q, colat_q, phi_q)[0]

@@ -30,8 +30,8 @@ from .coords import image_xyz_to_mas_sph
 from .grids import UniformGrid, linear_z_grid, variable_z_grid
 from .grff.transfer import (get_mw_slice, log_spaced_freqs, tb_from_sfu,
                             transfer_carry_init)
-from .mas.model import MASModel, resample_var_to_cube
-from .ops import transfer_fold
+from .mas.model import MASModel, scene_arrays
+from .ops import resample, transfer_fold
 from .parallel.mesh import (RayMesh, all_gather, gather_rays, shard_freqs,
                             shard_rays)
 from .sampler import LosSamples, valid_and_ds
@@ -88,9 +88,10 @@ def _bvec_image_cubes(br, bt, bp, grid: UniformGrid):
 def prepare_cubes(model: MASModel, grid: UniformGrid, phi0_offset_deg=0.0,
                   verbose=True, keep_bvec=False, device="cuda"):
     """Resample the five MAS variables into the pipeline cubes on
-    `device`: omega_pe (rad/s), ne (cm^-3), te (K), b (G) as float32
-    tensors, plus with keep_bvec "bvec", the image-frame (bx, by, bz)
-    cubes for theta_mode='los'."""
+    `device` (one kernel launch on a card, ops/resample.resample_cubes):
+    omega_pe (rad/s), ne (cm^-3), te (K), b (G) as float32 tensors, plus
+    with keep_bvec "bvec", the image-frame (bx, by, bz) cubes for
+    theta_mode='los'."""
     temp_var = model.temperature_variable()
     for v in ("br", "bt", "bp"):
         if v not in model.variables:
@@ -99,9 +100,11 @@ def prepare_cubes(model: MASModel, grid: UniformGrid, phi0_offset_deg=0.0,
     if verbose:
         print(f"Resampling rho/{temp_var}/br/bt/bp -> cubes "
               f"({grid.nx}^3, phi0={phi0_offset_deg})...")
-    raw = [resample_var_to_cube(model[v], grid, phi0_offset_deg,
-                                fill_nan=None, device=device)
-           for v in ("rho", temp_var, "br", "bt", "bp")]
+    xs, ys, zs = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                  for a in grid.axes())
+    raw = resample.resample_cubes(
+        scene_arrays([model[v] for v in ("rho", temp_var, "br", "bt", "bp")],
+                     device), xs, ys, zs, phi0_offset_deg, fill_nan=None)
     omega_pe, ne, te, b = _finalize_cubes(*raw)
     cubes = {"omega_pe": omega_pe, "ne": ne, "te": te, "b": b}
     if keep_bvec:
@@ -500,15 +503,19 @@ def resample_mas_los(model_path, n_pix=128, x_range=(-1.44, 1.44),
     r, colat, lon = image_xyz_to_mas_sph(Xb, Yb, Z, phi0_offset)
     valid = r >= 0.9999999
 
-    def sample(name):
-        v = model[name].sample_sph(r, colat, lon, device=device)
-        return torch.where(valid, v, math.nan).to(f64)
-
     if verbose:
         print(f"Sampling LOS grid {n_pix}x{n_pix}x{n_z} on {device}...")
-    ne = sample("rho").cpu().numpy()
-    te = sample(temp_var).cpu().numpy()
-    b = torch.sqrt(sum(sample(v) ** 2 for v in ("br", "bt", "bp")))
+    names = ("rho", temp_var, "br", "bt", "bp")
+    samples = resample.sample_sph_many(
+        scene_arrays([model[v] for v in names], device),
+        *(q.contiguous() for q in torch.broadcast_tensors(r, colat, lon)))
+
+    def sample(v):
+        return torch.where(valid, v, math.nan).to(f64)
+
+    ne = sample(samples[0]).cpu().numpy()
+    te = sample(samples[1]).cpu().numpy()
+    b = torch.sqrt(sum(sample(v) ** 2 for v in samples[2:]))
     b = b.cpu().numpy()
     ds = np.broadcast_to(dz[None, None, :] * R_SUN_CM, ne.shape).copy()
 

@@ -604,6 +604,214 @@ def test_sample_sph_kernel_takes_broadcast_queries(cuda, mas_model):
     assert out.shape == (7, 5) and _same(out, ref)
 
 
+def _scene(cuda, kind, seed=3):
+    """A scene of CUDA (data, phi, theta, r) tuples from a seed: 'one'
+    variable; 'shared2' and 'shared5', variables on one mesh (its axes the
+    same tensors); 'staggered2' (a mesh and its r half-steps) and
+    'staggered5' (rho and t on one mesh, br, bt and bp on its r, theta and
+    phi half-steps, as a MAS run staggers them); 'two_nodes', a mesh whose
+    theta axis has 2 nodes beside one of 6."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    phi = np.sort(rng.uniform(0.0, 2 * np.pi, 12))
+    theta = np.sort(rng.uniform(0.02, np.pi - 0.02, 10))
+    r = 1.0 + 5.0 * np.sort(rng.uniform(0.0, 1.0, 14)) ** 1.5
+    r[0] = 1.0
+
+    def half(a):
+        return 0.5 * (a[:-1] + a[1:])
+
+    def axes(p, t, rr):
+        return [torch.as_tensor(np.asarray(a, f32), device=cuda)
+                for a in (np.concatenate([p, [p[0] + 2 * np.pi]]), t, rr)]
+
+    base = axes(phi, theta, r)
+    meshes = {
+        "one": [base], "shared2": [base] * 2, "shared5": [base] * 5,
+        "staggered2": [base, [*base[:2], axes(phi, theta, half(r))[2]]],
+        "staggered5": [base, base, [*base[:2], axes(phi, theta, half(r))[2]],
+                       [base[0], axes(phi, half(theta), r)[1], base[2]],
+                       [axes(half(phi), theta, r)[0], *base[1:]]],
+        "two_nodes": [[base[0], axes(phi, theta[[2, 7]], r)[1], base[2]],
+                      [base[0], axes(phi, theta[:6], r)[1], base[2]]],
+    }[kind]
+    scene = []
+    for m in meshes:
+        data = rng.uniform(0.5, 2.0, tuple(a.shape[0] for a in m))
+        data[-1] = data[0]
+        data.flat[::97] = np.nan
+        scene.append((torch.as_tensor(data.astype(f32), device=cuda), *m))
+    return scene
+
+
+def _cube_axes(cuda, shape, extent=2.5):
+    """Cube axes of `shape`, each through 0 (an odd length) or about it."""
+    out = []
+    for n in shape:
+        a = np.linspace(-extent, extent, n, dtype=np.float32)
+        if n % 2:
+            a[n // 2] = 0.0
+        out.append(torch.as_tensor(a, device=cuda))
+    return out
+
+
+@pytest.mark.parametrize("shape,phi0,fill", [((130, 130, 130), 0.0, None),
+                                             ((1, 7, 300), -140.0, 0.0),
+                                             ((19, 41, 33), 24.0, None),
+                                             ((19, 41, 33), -140.0, 0.0)])
+@pytest.mark.parametrize("kind", ["one", "shared2", "shared5", "staggered2",
+                                  "staggered5", "two_nodes"])
+def test_resample_cubes_kernel_matches_plain(cuda, kind, shape, phi0, fill):
+    """rgrff_resample_cube over a scene of 1, 2 or 5 variables on shared
+    and staggered meshes, one launch, every variable's cube equal to
+    resample_cube_plain's (NaN masks and values), on cubes whose sides are
+    no multiple of the run length or of 128, with the voxel at the origin
+    where all three sides are odd."""
+    from raytracinggrff_tpu_torch.ops import resample
+    scene = _scene(cuda, kind)
+    axes = _cube_axes(cuda, shape)
+    before = resample.LAUNCHES["cube"]
+    outs = resample.resample_cubes(scene, *axes, phi0, fill)
+    assert resample.LAUNCHES["cube"] == before + 1
+    assert len(outs) == len(scene)
+    for v, out in zip(scene, outs):
+        ref = resample.resample_cube_plain(*v, *axes, phi0, fill)
+        assert out.shape == shape and _same(out, ref)
+    if fill is None and all(n % 2 for n in shape):
+        mid = tuple(n // 2 for n in shape)
+        assert all(torch.isnan(out[mid]) for out in outs)
+
+
+def test_resample_cubes_kernel_matches_plain_at_576(cuda, mas_model):
+    """The sweep's largest cube set, 576^3 at extent 1.5 and phi0 -140: the
+    synthetic model's five variables in one launch, each equal to its
+    plain cube."""
+    from raytracinggrff_tpu_torch.mas.model import scene_arrays
+    from raytracinggrff_tpu_torch.ops import resample
+    names = ("rho", "t", "br", "bt", "bp")
+    scene = scene_arrays([mas_model[v] for v in names], cuda)
+    axes = [torch.as_tensor(a, dtype=torch.float32, device=cuda)
+            for a in UniformGrid.cube(1.5, 576).axes()]
+    outs = resample.resample_cubes(scene, *axes, -140.0, None)
+    for v, out in zip(scene, outs):
+        assert _same(out, resample.resample_cube_plain(*v, *axes, -140.0,
+                                                       None))
+        del out
+
+
+@pytest.mark.parametrize("mesh", ["fine", "coarse"])
+def test_resample_walk_matches_search(cuda, mesh):
+    """The cube kernel walks a voxel's theta and r cells from the last
+    voxel's and falls back to the binary search after a few nodes: on
+    axes far finer than the cube (2,000 theta and 4,000 r nodes, hundreds
+    between voxels) and far coarser (3 nodes each), on a cube whose sides
+    the run length does not divide, its cubes equal the plain version's,
+    whose torch.searchsorted is the binary search."""
+    from raytracinggrff_tpu_torch.ops import resample
+    rng = np.random.default_rng(11)
+    nt, nr = (2000, 4000) if mesh == "fine" else (3, 3)
+    theta = np.linspace(0.01, np.pi - 0.01, nt, dtype=np.float32)
+    r = (1.0 + 5.0 * np.linspace(0.0, 1.0, nr) ** 1.5).astype(np.float32)
+    phi = np.linspace(0.0, 2 * np.pi, 13, dtype=np.float32)
+    data = rng.uniform(0.5, 2.0, (13, nt, nr)).astype(np.float32)
+    data[-1] = data[0]
+    var = [torch.as_tensor(a, device=cuda) for a in (data, phi, theta, r)]
+    axes = _cube_axes(cuda, (37, 45, 37), extent=6.5)
+    ref = resample.resample_cube_plain(*var, *axes, -140.0, None)
+    assert _same(resample.resample_cube(*var, *axes, -140.0, None), ref)
+
+
+@pytest.mark.parametrize("shape", [(1,), (37,), (300, 41)])
+@pytest.mark.parametrize("kind", ["one", "shared2", "shared5", "staggered2",
+                                  "staggered5", "two_nodes"])
+def test_sample_sph_many_kernel_matches_plain(cuda, kind, shape):
+    """rgrff_sample_sph over a scene of 1, 2 or 5 variables on shared and
+    staggered meshes, one launch, at random queries with NaN, r off the
+    mesh on both sides and phi outside [0, 2 pi): every variable's samples
+    equal sample_sph_plain's."""
+    from raytracinggrff_tpu_torch.ops import resample
+    rng = np.random.default_rng(len(shape) * 7 + shape[0])
+    f32 = np.float32
+    q = [rng.uniform(0.9, 6.2, shape).astype(f32),
+         rng.uniform(-0.1, np.pi + 0.1, shape).astype(f32),
+         rng.uniform(-7.0, 13.0, shape).astype(f32)]
+    for a, bad in zip(q, ([np.nan, 0.5, 7.0], [1.0, np.nan, 1.0],
+                          [1.0, 1.0, np.nan])):
+        a.reshape(-1)[:3] = bad[:a.size]
+    q = [torch.as_tensor(a, device=cuda) for a in q]
+    scene = _scene(cuda, kind)
+    before = resample.LAUNCHES["sph"]
+    outs = resample.sample_sph_many(scene, *q)
+    assert resample.LAUNCHES["sph"] == before + 1
+    for v, out in zip(scene, outs):
+        ref = resample.sample_sph_plain(*v, *q)
+        assert out.shape == shape and _same(out, ref)
+
+
+def test_scene_paths_launch_once(cuda, mas_model):
+    """prepare_cubes launches the cube resample once for its five
+    variables, resample_mas_los the sampler once; their results equal the
+    plain versions' (chip_smoke.plain_scenes' routing)."""
+    from raytracinggrff_tpu_torch.ops import resample
+    from raytracinggrff_tpu_torch.pipeline import (prepare_cubes,
+                                                   resample_mas_los)
+    grid = UniformGrid.cube(3.0, 33)
+    before = dict(resample.LAUNCHES)
+    cubes = prepare_cubes(mas_model, grid, 10.0, verbose=False,
+                          keep_bvec=True, device="cuda")
+    assert resample.LAUNCHES == dict(before, cube=before["cube"] + 1)
+    kw = dict(n_pix=12, n_z=30, dz0=3e-3, verbose=False, device="cuda")
+    los = resample_mas_los(mas_model.path, **kw)
+    assert resample.LAUNCHES == dict(before, cube=before["cube"] + 1,
+                                     sph=before["sph"] + 1)
+    saved = resample.resample_cubes, resample.sample_sph_many
+    try:
+        resample.resample_cubes = resample.resample_cubes_plain
+        resample.sample_sph_many = resample.sample_sph_many_plain
+        cubes_p = prepare_cubes(mas_model, grid, 10.0, verbose=False,
+                                keep_bvec=True, device="cuda")
+        los_p = resample_mas_los(mas_model.path, **kw)
+    finally:
+        resample.resample_cubes, resample.sample_sph_many = saved
+    for key in ("omega_pe", "ne", "te", "b"):
+        assert _same(cubes[key], cubes_p[key]), key
+    assert all(_same(a, b) for a, b in zip(cubes["bvec"], cubes_p["bvec"]))
+    for key in ("Ne_LOS", "Te_LOS", "B_LOS"):
+        assert np.array_equal(los[key], los_p[key], equal_nan=True), key
+
+
+def test_scene_kernel_failures_raise(cuda, monkeypatch, tmp_path):
+    """A launch the C entry refuses raises and counts nothing, and so does
+    a kernel library that fails to build: nothing falls back to the plain
+    version."""
+    from raytracinggrff_tpu_torch.ops import resample
+    scene = _scene(cuda, "shared2")
+    axes = _cube_axes(cuda, (9, 9, 9))
+    before = dict(resample.LAUNCHES)
+    # axes beyond the card's shared memory, let past the wrapper's check:
+    # the C entry refuses them
+    monkeypatch.setattr(resample, "MAX_SHARED_BYTES", 1 << 30)
+    big = torch.linspace(1.0, 9.0, 60_000, device=cuda)
+    wide = (torch.zeros(*scene[0][0].shape[:2], 60_000, device=cuda),
+            *scene[0][1:3], big)
+    with pytest.raises(RuntimeError, match="rgrff_resample_cube launch "
+                                           "failed"):
+        resample.resample_cubes([scene[0], wide], *axes)
+    with pytest.raises(RuntimeError, match="rgrff_sample_sph launch failed"):
+        resample.sample_sph_many([wide], *axes)
+    assert resample.LAUNCHES == before
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "broken.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "library",
+                        lambda: _build.load_library(
+                            _build.build_library()[0]))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        resample.sample_sph_many(scene, *axes)
+    assert resample.LAUNCHES == before
+
+
 def _scan_records(device, n_rec, n_rays, seed=0):
     """Straight records (n_rec, n_rays, 3) with NaN and inf positions, NaN
     and non-positive cross-sections, ray starts and a `usable` mask."""
@@ -705,7 +913,8 @@ def test_get_mw_dem_mode_kernel_matches_plain(cuda, monkeypatch, mech):
 def test_scene_wrappers_refuse_what_the_kernels_do_not_take(cuda,
                                                             mas_model):
     """Wrong dtype, a non-contiguous tensor, a tensor on the CPU beside
-    CUDA ones and mismatched shapes are refused before any launch."""
+    CUDA ones, mismatched shapes, a scene of no or more than 5 variables
+    and axes beyond the shared memory are refused before any launch."""
     from raytracinggrff_tpu_torch.ops import los_scans, resample
     mesh = list(mas_model["rho"].device_arrays(cuda))
     axes = [torch.linspace(-2, 2, 9, device=cuda)] * 3
@@ -726,6 +935,26 @@ def test_scene_wrappers_refuse_what_the_kernels_do_not_take(cuda,
         resample.sample_sph(*mesh, q, q, q[:, :2].contiguous())
     with pytest.raises(TypeError, match="float32"):
         resample.sample_sph(*mesh, q.double(), q, q)
+    with pytest.raises(ValueError, match="1 to 5 variables"):
+        resample.resample_cubes([mesh] * 6, *axes)
+    with pytest.raises(ValueError, match="1 to 5 variables"):
+        resample.sample_sph_many([], q, q, q)
+    with pytest.raises(ValueError, match="is on"):
+        resample.resample_cubes([mesh, [m.cpu() for m in mesh]], *axes)
+    with pytest.raises(ValueError, match="contiguous"):
+        resample.sample_sph_many(
+            [mesh, [mesh[0].transpose(1, 2).contiguous().transpose(1, 2),
+                    *mesh[1:]]], q, q, q)
+    with pytest.raises(ValueError, match="must be"):
+        resample.resample_cubes([mesh, [mesh[0], *mesh[1:3], mesh[3][:-1]]],
+                                *axes)
+    with pytest.raises(ValueError, match="one shape"):
+        resample.sample_sph_many([mesh] * 2, q, q, q[:, :2].contiguous())
+    big = torch.linspace(1.0, 9.0, 60_000, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        resample.sample_sph_many(
+            [mesh, (torch.zeros(mesh[0].shape[0], mesh[0].shape[1], 60_000,
+                                device=cuda), *mesh[1:3], big)], q, q, q)
     pos, s, start, usable = _scan_records(cuda, 5, 8)
     with pytest.raises(TypeError, match="float32"):
         los_scans.valid_ds(pos.double(), s, start)

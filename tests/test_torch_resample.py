@@ -1,12 +1,17 @@
 """The plain versions of the scene kernels (ops/resample.py,
 ops/los_scans.py) against their JAX twins on the same numpy inputs from a
 seed: the cube resample (_resample_cube_jit), the spherical sampler
-(_interp_sph), the ds scan (sampler.los_from_records) and GET_MW's DEM
-recurrence (the voxel scan of _grff_transfer_dem_jit), at rtol 1e-5 with
-equal NaN and validity masks. On the CPU every wrapper runs its plain
-version and counts no launch; a device without a kernel is refused. The
-kernels themselves are held to these plain versions on the card in
-tests/test_torch_cuda.py."""
+(_interp_sph), both one variable at a time and over a scene of five
+variables on staggered meshes, the ds scan (sampler.los_from_records) and
+GET_MW's DEM recurrence (the voxel scan of _grff_transfer_dem_jit), at
+rtol 1e-5 with equal NaN and validity masks. On the CPU every wrapper runs
+its plain version and counts no launch; a device without a kernel is
+refused. The kernels themselves are held to these plain versions on the
+card in tests/test_torch_cuda.py."""
+
+import ctypes
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +27,7 @@ from raytracinggrff_tpu_torch import sampler as psam
 from raytracinggrff_tpu_torch.grff import transfer as ptr
 from raytracinggrff_tpu_torch.grids import UniformGrid
 from raytracinggrff_tpu_torch.mas import model as pmodel
-from raytracinggrff_tpu_torch.ops import los_scans, resample
+from raytracinggrff_tpu_torch.ops import _build, los_scans, resample
 
 torch.set_num_threads(1)
 RTOL = 1e-5
@@ -86,6 +91,154 @@ def test_sample_sph_plain_matches_jax(model):
     assert out.shape == (40, 50)
     _close_with_nans(out.numpy(), ref)
     assert np.isnan(out.numpy()[0, :3]).all()
+
+
+def staggered_scene(seed=7, nphi=12, ntheta=10, nr=14):
+    """Five MAS variables as numpy (data, phi, theta, r), a seed-made mesh
+    staggered as a MAS run staggers them: rho and t on one mesh, br on the
+    r half-steps, bt on the theta half-steps, bp on the phi half-steps (the
+    periodic copy padded as MASVariable pads it). The fields are smooth, as
+    MAS fields are (a seed-made amplitude and phase each): torch and XLA
+    may round a voxel's coordinates one ulp apart, which moves a smooth
+    field's sample by far less than the tests' rtol."""
+    rng = np.random.default_rng(seed)
+    phi = np.sort(rng.uniform(0.0, 2 * np.pi, nphi))
+    theta = np.sort(rng.uniform(0.02, np.pi - 0.02, ntheta))
+    r = 1.0 + 5.0 * np.sort(rng.uniform(0.0, 1.0, nr)) ** 1.5
+    r[0] = 1.0
+
+    def half(a):
+        return 0.5 * (a[:-1] + a[1:])
+
+    def padded(p):
+        return np.concatenate([p, [p[0] + 2 * np.pi]])
+
+    meshes = [(padded(phi), theta, r), (padded(phi), theta, r),
+              (padded(phi), theta, half(r)), (padded(phi), half(theta), r),
+              (padded(half(phi)), theta, r)]
+    scene = []
+    for p, t, rr in meshes:
+        amp, shift = rng.uniform(0.1, 0.4), rng.uniform(0.0, np.pi)
+        P, T, R = np.meshgrid(p[:-1], t, rr, indexing="ij")
+        data = (1.0 + amp * np.cos(2 * P + shift) * np.sin(T) ** 2) / R ** 2
+        data = np.concatenate([data, data[:1]], axis=0)
+        scene.append(tuple(a.astype(np.float32) for a in (data, p, t, rr)))
+    return scene
+
+
+def _torch_scene(scene):
+    """The scene as CPU tensors, the axes that equal an earlier variable's
+    shared as one tensor (as mas/model.scene_arrays shares them)."""
+    seen = {}
+    return [tuple(seen.setdefault((k, a.tobytes()), torch.as_tensor(a))
+                  if k else torch.as_tensor(a) for k, a in enumerate(v))
+            for v in scene]
+
+
+@pytest.mark.parametrize("fill", [None, 0.0])
+@pytest.mark.parametrize("phi0", [0.0, -140.0])
+def test_resample_cubes_plain_matches_jax(phi0, fill):
+    """resample_cubes_plain of a staggered five-variable scene onto an 18^3
+    cube (its center off the nodes), variable by variable, against the JAX
+    _resample_cube_jit of that variable at rtol 1e-5 with equal NaN masks;
+    resample_cube (one variable) and resample_cubes equal it there."""
+    scene = staggered_scene()
+    grid = UniformGrid.cube(2.5, 18)
+    axes = [torch.as_tensor(a, dtype=torch.float32) for a in grid.axes()]
+    variables = _torch_scene(scene)
+    out = resample.resample_cubes_plain(variables, *axes, phi0, fill)
+    many = resample.resample_cubes(variables, *axes, phi0, fill)
+    assert len(out) == len(many) == 5
+    jfill = None if fill is None else (float(fill),)
+    for v, (arrays, cube) in enumerate(zip(scene, out)):
+        ref = jmodel._resample_cube_jit(*map(jnp.asarray, arrays),
+                                        JaxGrid.cube(2.5, 18),
+                                        jnp.float32(phi0), jfill)
+        assert cube.shape == (18, 18, 18)
+        ok = _close_with_nans(cube.numpy(), ref)
+        assert ok.mean() > 0.5 and ok.all() == (fill is not None), v
+        one = resample.resample_cube(*variables[v], *axes, phi0, fill)
+        for got in (one, many[v]):
+            assert torch.equal(got.isnan(), cube.isnan())
+            assert torch.equal(got.nan_to_num(), cube.nan_to_num())
+
+
+def test_sample_sph_many_plain_matches_jax():
+    """sample_sph_many_plain of the staggered scene at (30, 40) queries
+    with NaN, r on both sides of each r axis and phi outside [0, 2 pi),
+    variable by variable, against the JAX _interp_sph_jit; sample_sph (one
+    variable) and sample_sph_many equal it there."""
+    rng = np.random.default_rng(5)
+    f32 = np.float32
+    q = [rng.uniform(0.9, 6.2, (30, 40)).astype(f32),
+         rng.uniform(-0.1, np.pi + 0.1, (30, 40)).astype(f32),
+         rng.uniform(-7.0, 13.0, (30, 40)).astype(f32)]
+    q[0][0, :3] = [np.nan, 0.5, 7.0]
+    q[1][1, 0] = np.nan
+    q[2][2, 1] = np.nan
+    scene = staggered_scene()
+    variables = _torch_scene(scene)
+    qt = [torch.as_tensor(a) for a in q]
+    out = resample.sample_sph_many_plain(variables, *qt)
+    many = resample.sample_sph_many(variables, *qt)
+    for v, (arrays, got) in enumerate(zip(scene, out)):
+        ref = jmodel._interp_sph_jit(*map(jnp.asarray, arrays),
+                                     *map(jnp.asarray, q))
+        assert got.shape == (30, 40)
+        _close_with_nans(got.numpy(), ref)
+        assert np.isnan(got.numpy()[0, :3]).all()
+        for other in (resample.sample_sph(*variables[v], *qt), many[v]):
+            assert torch.equal(other.isnan(), got.isnan())
+            assert torch.equal(other.nan_to_num(), got.nan_to_num())
+
+
+def test_scene_arrays_share_equal_axes(model):
+    """mas/model.scene_arrays uploads an axis once for the variables whose
+    axes are equal: the synthetic model's five variables share their three
+    axes; a staggered scene shares only its equal ones. Each tuple equals
+    MASVariable.device_arrays."""
+    m = pmodel.MASModel(model)
+    variables = [m[v] for v in ("rho", "t", "br", "bt", "bp")]
+    arrays = pmodel.scene_arrays(variables, "cpu")
+    for var, got in zip(variables, arrays):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(got, var.device_arrays("cpu")))
+        assert all(got[k] is arrays[0][k] for k in (1, 2, 3))
+    staggered = [pmodel.MASVariable(n, d[:-1], p[:-1], t, r, 1.0)
+                 for n, (d, p, t, r) in zip("abcde", staggered_scene())]
+    arrays = pmodel.scene_arrays(staggered, "cpu")
+    shared = [[arrays[v][k] is arrays[0][k] for k in (1, 2, 3)]
+              for v in range(5)]
+    assert shared == [[True] * 3, [True] * 3, [True, True, False],
+                      [True, False, True], [False, True, True]]
+
+
+def test_sph_params_mirror_the_cuda_struct():
+    """ops/_build._SphParams lists the fields of struct SphParams in
+    csrc/resample_sph.cu in its order, types and array sizes, with
+    MAX_VARS as the source's kMaxVars."""
+    src = (Path(_build.CSRC) / "resample_sph.cu").read_text()
+    assert int(re.search(r"constexpr int kMaxVars = (\d+);", src).group(1)) \
+        == _build.MAX_VARS == resample.MAX_VARS
+    body = re.search(r"struct SphParams \{(.*?)\n\};", src, re.S).group(1)
+    dims = {"kMaxVars": _build.MAX_VARS, "3": 3}
+    fields = []
+    types = r"const float\*|float\*|long long|int|float"
+    for ctype, names in re.findall(rf"^\s*({types}) ([^;]+);", body, re.M):
+        for decl in names.split(","):
+            name, *shape = re.findall(r"\w+", decl)
+            fields.append((name, ctype.strip(), [dims[d] for d in shape]))
+    base = {"long long": ctypes.c_longlong, "int": ctypes.c_int,
+            "float": ctypes.c_float, "const float*": ctypes.c_void_p,
+            "float*": ctypes.c_void_p}
+    want = []
+    for name, ct in _build._SphParams._fields_:
+        shape = []
+        while issubclass(ct, ctypes.Array):
+            shape.append(ct._length_)
+            ct = ct._type_
+        want.append((name, ct, shape))
+    assert [(n, base[c], s) for n, c, s in fields] == want
 
 
 def _records(seed, n_rec=30, n_rays=40):
@@ -222,8 +375,9 @@ def test_dem_get_mw_matches_jax(mech):
 
 def test_cpu_tensors_take_the_plain_path(model):
     """On CPU tensors the public entries (resample_var_to_cube,
-    MASVariable.sample_sph, sampler.valid_and_ds) return their plain
-    versions' results and count no kernel launch."""
+    MASVariable.sample_sph, resample_cubes, sample_sph_many,
+    sampler.valid_and_ds) return their plain versions' results and count
+    no kernel launch."""
     counts = (dict(resample.LAUNCHES), dict(los_scans.LAUNCHES))
     var = pmodel.MASModel(model)["rho"]
     grid = UniformGrid.cube(2.5, 11)
@@ -242,6 +396,12 @@ def test_cpu_tensors_take_the_plain_path(model):
         *var.device_arrays("cpu"), torch.as_tensor(r[:, None]),
         torch.tensor(1.0), torch.linspace(0, 6, 5))
     assert got.shape == (7, 5) and torch.equal(got, want)
+    arrays = pmodel.scene_arrays([var, pmodel.MASModel(model)["bt"]], "cpu")
+    cubes = resample.resample_cubes(arrays, *axes, -140.0, None)
+    assert torch.equal(cubes[0].nan_to_num(), ref.nan_to_num())
+    many = resample.sample_sph_many(arrays, torch.as_tensor(r[:, None]),
+                                    torch.tensor(1.0), torch.linspace(0, 6, 5))
+    assert torch.equal(many[0], want)
     pos, s, start, usable = _records(2, n_rec=9, n_rays=9)
     args = [torch.as_tensor(a) for a in (pos, s, start)]
     for mask in (None, torch.as_tensor(usable)):
@@ -264,6 +424,14 @@ def test_wrappers_refuse_a_device_without_a_kernel(model):
         resample.resample_cube(*mesh, *axes)
     with pytest.raises(ValueError, match="no resampling kernel"):
         resample.sample_sph(*mesh, *axes)
+    with pytest.raises(ValueError, match="no resampling kernel"):
+        resample.resample_cubes([mesh, mesh], *axes)
+    with pytest.raises(ValueError, match="no resampling kernel"):
+        resample.sample_sph_many([mesh] * 5, *axes)
+    with pytest.raises(ValueError, match="1 to 5 variables"):
+        resample.resample_cubes([mesh] * 6, *axes)
+    with pytest.raises(ValueError, match="1 to 5 variables"):
+        resample.sample_sph_many([mesh] * 6, *axes)
     with pytest.raises(ValueError, match="no line-of-sight scan kernel"):
         los_scans.valid_ds(torch.empty(2, 3, 3, device=meta),
                            torch.empty(2, 3, device=meta),
