@@ -1,0 +1,8 @@
+"""resample_s.sweep: the "resample" stage summed over a sweep's maps
+(run_sweep's timings), mean over the window's sweeps, s."""
+
+from benchmark.yardstick.readings import sweep_stage_mean_s
+
+
+def read(run):
+    return sweep_stage_mean_s(run, "resample")
