@@ -19,6 +19,7 @@ pngs (matplotlib, imported only there) and the manifest.
 from __future__ import annotations
 
 import argparse
+import contextlib
 from pathlib import Path
 
 import numpy as np
@@ -26,8 +27,9 @@ import torch
 
 from ..grids import UniformGrid
 from ..mas.model import MASModel
-from ..pipeline import (RayEmissionConfig, StageClock, prepare_cubes,
+from ..pipeline import (RayEmissionConfig, prepare_cubes,
                         run_ray_tracing_emission)
+from ..utils import profiling
 
 
 def _lowband_params(freq_hz):
@@ -141,10 +143,15 @@ def run_sweep(model_path, freqs_hz, out_dir, n_pix=128, phi0_offset=-140.0,
     dropped before the next one is made: presets are monotone in
     frequency, so each group is contiguous, and high-band cube sets
     (576^3 x 4 cubes) must not pile up in device memory. A list passed
-    as `timings` receives one dict per map run: the preset, the number of
-    records, seconds per stage (resample of its cube set, 0 when reused;
-    trace, transfer, finish), segments and, on a CUDA device, the peak
-    device memory allocated while the map ran (bytes)."""
+    as `timings` makes each map record its spans (utils/profiling: one
+    recording a map, holding the cube-set resample that the map triggers
+    and, nested in it, run_ray_tracing_emission's) and receives one dict
+    per map run: the preset, the number of records, the map's `timings`
+    of run_ray_tracing_emission (seconds per span: resample, with its
+    cube set's resample, "read" and "upload" when the map made it; rays,
+    trace, trace_inputs, transfer, finish, write; segments) and, on a
+    CUDA device, the peak device memory allocated while the map ran
+    (bytes)."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     if start_from_idx < 0 or start_from_idx >= len(freqs_hz):
@@ -153,60 +160,66 @@ def run_sweep(model_path, freqs_hz, out_dir, n_pix=128, phi0_offset=-140.0,
     cuda = torch.device(device).type == "cuda"
     rows = []
     cube_key, cubes = None, None
-    for i, freq_hz in enumerate(freqs_hz):
-        tag = f"{i:02d}_{freq_hz / 1e6:08.3f}MHz"
-        npz_path = out_dir / f"raytrace_{tag}.npz"
-        png_path = out_dir / f"Tb_map_{tag}.png"
-        row = {"idx": i, "freq_hz": float(freq_hz), "npz": str(npz_path),
-               "png": str(png_path)}
-        if i < start_from_idx:
-            if npz_path.exists() and png_path.exists():
-                rows.append(row)
-            continue
-        p = select_params(float(freq_hz))
-        if not exact_presets:
-            p = quantize_params(p)
-        if not plot_only:
-            if verbose:
-                print(f"[{i + 1:02d}/{len(freqs_hz)}] {freq_hz / 1e6:8.3f} "
-                      f"MHz | grid_n={p['grid_n']} dt={p['dt']:.3g} "
-                      f"n_steps={p['n_steps']} stride={p['record_stride']}")
-            if cuda:
-                torch.cuda.reset_peak_memory_stats(device)
-            clock = StageClock(device)
-            t0 = clock.mark()
-            key = (p["grid_n"], round(p["grid_extent"], 6))
-            if key != cube_key:
-                cubes = None      # free the previous set before resampling
-                grid = UniformGrid.cube(p["grid_extent"], p["grid_n"])
-                cubes = prepare_cubes(MASModel(model_path), grid, phi0_offset,
-                                      verbose=verbose, device=device)
-                cube_key = key
-            clock.add("resample", t0, clock.mark())
-            cfg = RayEmissionConfig(
-                n_pix=n_pix, x_fov=float(p["x_fov"]),
-                freq_hz=float(freq_hz), grid_n=int(p["grid_n"]),
-                grid_extent=float(p["grid_extent"]),
-                z_observer=float(p["z_observer"]), dt=float(p["dt"]),
-                n_steps=int(p["n_steps"]),
-                record_stride=int(p["record_stride"]),
-                s_input_on=s_input_on, nfreq=1, freq0=float(freq_hz),
-                phi0_offset=phi0_offset)
-            stages = {}
-            run_ray_tracing_emission(cubes=cubes, config=cfg,
-                                     out_path=str(npz_path), verbose=verbose,
-                                     device=device, timings=stages)
-            if timings is not None:
-                resample = clock.totals()["resample"] + stages.pop("resample")
-                timings.append(dict(
-                    idx=i, freq_hz=float(freq_hz), **p,
-                    records=-(-cfg.n_steps // cfg.record_stride),
-                    resample=resample, **stages,
-                    peak_bytes=(torch.cuda.max_memory_allocated(device)
-                                if cuda else None)))
-        if not npz_path.exists():
-            raise FileNotFoundError(f"Missing expected npz file: {npz_path}")
-        rows.append(row)
+    with profiling.span("sweep", clock=None):
+        for i, freq_hz in enumerate(freqs_hz):
+            tag = f"{i:02d}_{freq_hz / 1e6:08.3f}MHz"
+            npz_path = out_dir / f"raytrace_{tag}.npz"
+            png_path = out_dir / f"Tb_map_{tag}.png"
+            row = {"idx": i, "freq_hz": float(freq_hz), "npz": str(npz_path),
+                   "png": str(png_path)}
+            if i < start_from_idx:
+                if npz_path.exists() and png_path.exists():
+                    rows.append(row)
+                continue
+            p = select_params(float(freq_hz))
+            if not exact_presets:
+                p = quantize_params(p)
+            if not plot_only:
+                if verbose:
+                    print(f"[{i + 1:02d}/{len(freqs_hz)}] "
+                          f"{freq_hz / 1e6:8.3f} MHz | grid_n={p['grid_n']} "
+                          f"dt={p['dt']:.3g} n_steps={p['n_steps']} "
+                          f"stride={p['record_stride']}")
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats(device)
+                stages = None if timings is None else {}
+                recorder = (contextlib.nullcontext() if timings is None
+                            else profiling.recording(device))
+                with recorder as rec:
+                    key = (p["grid_n"], round(p["grid_extent"], 6))
+                    if key != cube_key:
+                        with profiling.span("resample", "device"):
+                            cubes = None  # free the previous set first
+                            grid = UniformGrid.cube(p["grid_extent"],
+                                                    p["grid_n"])
+                            cubes = prepare_cubes(
+                                MASModel(model_path), grid, phi0_offset,
+                                verbose=verbose, device=device)
+                        cube_key = key
+                    cfg = RayEmissionConfig(
+                        n_pix=n_pix, x_fov=float(p["x_fov"]),
+                        freq_hz=float(freq_hz), grid_n=int(p["grid_n"]),
+                        grid_extent=float(p["grid_extent"]),
+                        z_observer=float(p["z_observer"]), dt=float(p["dt"]),
+                        n_steps=int(p["n_steps"]),
+                        record_stride=int(p["record_stride"]),
+                        s_input_on=s_input_on, nfreq=1, freq0=float(freq_hz),
+                        phi0_offset=phi0_offset)
+                    run_ray_tracing_emission(
+                        cubes=cubes, config=cfg, out_path=str(npz_path),
+                        verbose=verbose, device=device, timings=stages)
+                if timings is not None:
+                    stages.update(rec.totals())  # and the cube set's spans
+                    timings.append(dict(
+                        idx=i, freq_hz=float(freq_hz), **p,
+                        records=-(-cfg.n_steps // cfg.record_stride),
+                        **stages,
+                        peak_bytes=(torch.cuda.max_memory_allocated(device)
+                                    if cuda else None)))
+            if not npz_path.exists():
+                raise FileNotFoundError(
+                    f"Missing expected npz file: {npz_path}")
+            rows.append(row)
     return rows
 
 

@@ -17,9 +17,9 @@ also runs over a parallel.mesh.RayMesh, one rank per device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-import time
 from pathlib import Path
 
 import numpy as np
@@ -37,6 +37,7 @@ from .parallel.mesh import (RayMesh, all_gather, gather_rays, shard_freqs,
 from .sampler import LosSamples, valid_and_ds
 from .tracer import check_s_mode
 from .tracer_segments import iter_trace_segments
+from .utils import profiling
 from .utils.plotting import inspection_pixel_index
 
 
@@ -91,20 +92,24 @@ def prepare_cubes(model: MASModel, grid: UniformGrid, phi0_offset_deg=0.0,
     `device` (one kernel launch on a card, ops/resample.resample_cubes):
     omega_pe (rad/s), ne (cm^-3), te (K), b (G) as float32 tensors, plus
     with keep_bvec "bvec", the image-frame (bx, by, bz) cubes for
-    theta_mode='los'."""
-    temp_var = model.temperature_variable()
-    for v in ("br", "bt", "bp"):
-        if v not in model.variables:
-            raise ValueError(
-                "Magnetic field components (br, bt, bp) not all found.")
+    theta_mode='los'. Spans: "read" (the HDF4 reads) and "upload" (the
+    copies to the device), on the host clock."""
+    with profiling.span("read"):
+        temp_var = model.temperature_variable()
+        for v in ("br", "bt", "bp"):
+            if v not in model.variables:
+                raise ValueError(
+                    "Magnetic field components (br, bt, bp) not all found.")
+        variables = [model[v] for v in ("rho", temp_var, "br", "bt", "bp")]
     if verbose:
         print(f"Resampling rho/{temp_var}/br/bt/bp -> cubes "
               f"({grid.nx}^3, phi0={phi0_offset_deg})...")
-    xs, ys, zs = (torch.as_tensor(a, dtype=torch.float32, device=device)
-                  for a in grid.axes())
-    raw = resample.resample_cubes(
-        scene_arrays([model[v] for v in ("rho", temp_var, "br", "bt", "bp")],
-                     device), xs, ys, zs, phi0_offset_deg, fill_nan=None)
+    with profiling.span("upload"):
+        xs, ys, zs = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                      for a in grid.axes())
+        arrays = scene_arrays(variables, device)
+    raw = resample.resample_cubes(arrays, xs, ys, zs, phi0_offset_deg,
+                                  fill_nan=None)
     omega_pe, ne, te, b = _finalize_cubes(*raw)
     cubes = {"omega_pe": omega_pe, "ne": ne, "te": te, "b": b}
     if keep_bvec:
@@ -198,36 +203,6 @@ def config_from_jax(cfg):
     return RayEmissionConfig(**values)
 
 
-class StageClock:
-    """Seconds per pipeline stage. On a CUDA device the spans are CUDA
-    events on the current stream, read after one synchronize at the end,
-    so asynchronous launches are charged to the stage that queued them;
-    on the CPU they are host clock readings."""
-
-    def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
-        self.spans = []
-
-    def mark(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
-
-    def add(self, name, begin, end):
-        self.spans.append((name, begin, end))
-
-    def totals(self):
-        if self.cuda:
-            torch.cuda.synchronize()
-        out = {}
-        for name, a, b in self.spans:
-            dt = a.elapsed_time(b) / 1e3 if self.cuda else b - a
-            out[name] = out.get(name, 0.0) + dt
-        return out
-
-
 def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
                              cubes=None, out_path=None, save_plots=False,
                              verbose=True, mesh=None, consider_beam=False,
@@ -248,9 +223,17 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
     pngs; consider_beam/beam_fwhm convolve the map plot with a Gaussian
     beam (resample_with_ray_tracing.py:618-639); patch_nan fills the
     pixels that came out non-finite with nearest-finite-neighbour means
-    (raytracingGRFF/util.py:6-77). A dict passed as `timings` receives
-    seconds per stage (resample, trace, transfer, finish) and the segment
-    count.
+    (raytracingGRFF/util.py:6-77).
+
+    A dict passed as `timings` makes the call record its spans in a
+    recording of its own (utils/profiling.recording, nested in the active
+    one if there is one) and receives their seconds, summed by name, and
+    the segment count ("segments"). The stages, on the device clock (CUDA
+    events on a card): "resample" (the cubes, "read" and "upload"
+    included), "trace" ("trace_inputs", the stacked kernel cubes and the
+    start state, included), "transfer", "finish". On the host clock:
+    "read" (the HDF4 reads), "upload" (the copies to the device), "rays"
+    (the ray starts) and, with out_path, "write" (the .npz).
 
     With `mesh` (a parallel.mesh.RayMesh, one per rank) the map runs on
     mesh.device, which a conflicting `device` may not contradict: each
@@ -284,78 +267,83 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
         if verbose:
             print(msg)
 
-    clock = StageClock(device)
-    need_bvec = cfg.theta_mode == "los"
-    grid = UniformGrid.cube(cfg.grid_extent, cfg.grid_n)
-    t0 = clock.mark()
-    if cubes is None:
-        cubes = prepare_cubes(MASModel(model_path, timestep=timestep), grid,
-                              cfg.phi0_offset, verbose=verbose,
-                              keep_bvec=need_bvec, device=device)
-    else:
-        cubes = cubes_from_numpy(cubes, device)
-    if need_bvec and "bvec" not in cubes:
-        raise ValueError(
-            "theta_mode='los' needs B-vector cubes: pass cubes from "
-            "prepare_cubes(..., keep_bvec=True) or a model_path")
-    clock.add("resample", t0, clock.mark())
+    recorder = (profiling.recording(device) if timings is not None
+                else contextlib.nullcontext())
+    with recorder as rec, profiling.span("map", clock=None):
+        need_bvec = cfg.theta_mode == "los"
+        grid = UniformGrid.cube(cfg.grid_extent, cfg.grid_n)
+        with profiling.span("resample", "device"):
+            if cubes is None:
+                cubes = prepare_cubes(MASModel(model_path, timestep=timestep),
+                                      grid, cfg.phi0_offset, verbose=verbose,
+                                      keep_bvec=need_bvec, device=device)
+            else:
+                cubes = cubes_from_numpy(cubes, device)
+        if need_bvec and "bvec" not in cubes:
+            raise ValueError(
+                "theta_mode='los' needs B-vector cubes: pass cubes from "
+                "prepare_cubes(..., keep_bvec=True) or a model_path")
 
-    xs, ys, start, kdir = image_ray_starts(cfg.n_pix, cfg.x_fov,
-                                           cfg.z_observer)
-    log(f"Ray tracing {start.shape[0]} rays ({cfg.n_steps} steps, stride "
-        f"{cfg.record_stride}) on {device}...")
-    freq0 = cfg.freq0 if cfg.freq0 is not None else cfg.freq_hz
-    frequencies_hz = log_spaced_freqs(freq0, cfg.nfreq, cfg.freq_log_step)
-    pixel_size_cm = (2 * cfg.x_fov) / cfg.n_pix * R_SUN_CM
-    pixel_area_cm2 = pixel_size_cm * pixel_size_cm
+        with profiling.span("rays"):
+            xs, ys, start, kdir = image_ray_starts(cfg.n_pix, cfg.x_fov,
+                                                   cfg.z_observer)
+        log(f"Ray tracing {start.shape[0]} rays ({cfg.n_steps} steps, "
+            f"stride {cfg.record_stride}) on {device}...")
+        freq0 = cfg.freq0 if cfg.freq0 is not None else cfg.freq_hz
+        frequencies_hz = log_spaced_freqs(freq0, cfg.nfreq, cfg.freq_log_step)
+        pixel_size_cm = (2 * cfg.x_fov) / cfg.n_pix * R_SUN_CM
+        pixel_area_cm2 = pixel_size_cm * pixel_size_cm
 
-    stats = {} if mesh is not None else None
-    flux_o, flux_x, n_segments, center_los = _streamed_trace_transfer(
-        cubes, grid, cfg, start, kdir, frequencies_hz, pixel_area_cm2,
-        device, clock, collect_center=save_plots, mesh=mesh, stats=stats)
+        stats = {} if mesh is not None else None
+        flux_o, flux_x, n_segments, center_los = _streamed_trace_transfer(
+            cubes, grid, cfg, start, kdir, frequencies_hz, pixel_area_cm2,
+            device, collect_center=save_plots, mesh=mesh, stats=stats)
 
-    t0 = clock.mark()
-    freqs = torch.as_tensor(frequencies_hz, dtype=torch.float32,
-                            device=device)
-    intensity = flux_o + flux_x
-    pol_vi = (flux_o - flux_x) / (intensity + 1e-30)
-    tb = tb_from_sfu(intensity, freqs, pixel_area_cm2)
-    failed = ~torch.isfinite(tb)        # before the sanitisation
-    tb = torch.nan_to_num(tb, nan=0.0, posinf=0.0, neginf=0.0)
-    shape = (cfg.n_pix, cfg.n_pix, cfg.nfreq)
-    emission_cube = tb.cpu().numpy().astype(np.float64).reshape(shape)
-    pol_cube = pol_vi.cpu().numpy().astype(np.float64).reshape(shape)
-    failed = failed.cpu().numpy().reshape(shape)
-    clock.add("finish", t0, clock.mark())
-    if patch_nan:
-        # only the non-finite pixels: exact zeros can be far-off-limb
-        # lines of sight that never meet the cube
-        from .utils.nanpatch import patch_nan_emission_map
-        emission_cube[failed] = np.nan
-        emission_cube = patch_nan_emission_map(emission_cube)
-        pol_cube[failed] = np.nan
-        pol_cube = patch_nan_emission_map(pol_cube)
+        with profiling.span("finish", "device"):
+            freqs = torch.as_tensor(frequencies_hz, dtype=torch.float32,
+                                    device=device)
+            intensity = flux_o + flux_x
+            pol_vi = (flux_o - flux_x) / (intensity + 1e-30)
+            tb = tb_from_sfu(intensity, freqs, pixel_area_cm2)
+            failed = ~torch.isfinite(tb)        # before the sanitisation
+            tb = torch.nan_to_num(tb, nan=0.0, posinf=0.0, neginf=0.0)
+            shape = (cfg.n_pix, cfg.n_pix, cfg.nfreq)
+            emission_cube = tb.cpu().numpy().astype(np.float64).reshape(shape)
+            pol_cube = pol_vi.cpu().numpy().astype(np.float64).reshape(shape)
+            failed = failed.cpu().numpy().reshape(shape)
+        if patch_nan:
+            # only the non-finite pixels: exact zeros can be far-off-limb
+            # lines of sight that never meet the cube
+            from .utils.nanpatch import patch_nan_emission_map
+            emission_cube[failed] = np.nan
+            emission_cube = patch_nan_emission_map(emission_cube)
+            pol_cube[failed] = np.nan
+            pol_cube = patch_nan_emission_map(pol_cube)
 
-    result = {
-        "emission_cube": emission_cube,
-        "emission_polVI_cube": pol_cube,
-        "frequencies_Hz": np.asarray(frequencies_hz),
-        "x_coords": xs * R_SUN_M,
-        "y_coords": ys * R_SUN_M,
-    }
-    writer = mesh is None or mesh.rank == 0
-    if out_path and writer:
-        np.savez_compressed(out_path, **result)
-        log(f"Saved {out_path}")
-    result["_sampled"] = center_los
-    if save_plots and out_path and writer:
-        from .utils.plotting import save_center_pixel_plot, save_emission_plot
-        save_emission_plot(result, cfg.n_pix, cfg.x_fov, out_path,
-                           consider_beam=consider_beam, beam_fwhm=beam_fwhm,
-                           device=device)
-        save_center_pixel_plot(center_los, cfg.n_pix, out_path, p_index=0)
-    if timings is not None:
-        timings.update(clock.totals(), segments=n_segments, **(stats or {}))
+        result = {
+            "emission_cube": emission_cube,
+            "emission_polVI_cube": pol_cube,
+            "frequencies_Hz": np.asarray(frequencies_hz),
+            "x_coords": xs * R_SUN_M,
+            "y_coords": ys * R_SUN_M,
+        }
+        writer = mesh is None or mesh.rank == 0
+        if out_path and writer:
+            with profiling.span("write"):
+                np.savez_compressed(out_path, **result)
+            log(f"Saved {out_path}")
+        result["_sampled"] = center_los
+        if save_plots and out_path and writer:
+            from .utils.plotting import (save_center_pixel_plot,
+                                         save_emission_plot)
+            save_emission_plot(result, cfg.n_pix, cfg.x_fov, out_path,
+                               consider_beam=consider_beam,
+                               beam_fwhm=beam_fwhm, device=device)
+            save_center_pixel_plot(center_los, cfg.n_pix, out_path,
+                                   p_index=0)
+        if rec is not None:
+            timings.update(rec.totals(), segments=n_segments,
+                           **(stats or {}))
     return result
 
 
@@ -374,8 +362,8 @@ def _center_los(rows, start, with_cos):
 
 
 def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
-                             pixel_area_cm2, device, clock,
-                             collect_center=False, mesh=None, stats=None):
+                             pixel_area_cm2, device, collect_center=False,
+                             mesh=None, stats=None):
     """Stream trace segments into the transfer carry on the device: one
     ops/transfer_fold.fold_records call a segment (the JAX package's
     stream_seg, pipeline.py:377-396). Per record: a record is valid
@@ -420,34 +408,31 @@ def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
         bvec=cubes.get("bvec") if theta_los else None, s_mode=cfg.s_mode,
         mesh=mesh, stats=stats)
     while True:
-        t0 = clock.mark()
-        recs = next(segments, None)
-        t1 = clock.mark()
-        clock.add("trace", t0, t1)
+        with profiling.span("trace", "device"):
+            recs = next(segments, None)
         if recs is None:
             break
         n_segments += 1
-        if collect_here:
-            # a copy, so the segment's record block is not kept alive
-            center_rows.append(recs[:, :, p_local].clone())
-        carry, prev = transfer_fold.fold_records(
-            recs, carry, prev, freqs, pixel_area_cm2, cfg.theta_deg,
-            cfg.mechanism, gaunt=cfg.gaunt, s_on=cfg.s_input_on,
-            theta_los=theta_los)
-        clock.add("transfer", t1, clock.mark())
+        with profiling.span("transfer", "device"):
+            if collect_here:
+                # a copy, so the segment's record block is not kept alive
+                center_rows.append(recs[:, :, p_local].clone())
+            carry, prev = transfer_fold.fold_records(
+                recs, carry, prev, freqs, pixel_area_cm2, cfg.theta_deg,
+                cfg.mechanism, gaunt=cfg.gaunt, s_on=cfg.s_input_on,
+                theta_los=theta_los)
     flux_o, flux_x = carry[0], carry[1]
     rows = torch.cat(center_rows) if collect_here else None
     if mesh is not None:
-        t0 = clock.mark()
-        both = gather_rays(torch.stack([flux_o, flux_x], dim=1), mesh,
-                           n_rays, nf)
-        flux_o, flux_x = both[:, 0], both[:, 1]
-        if collect_center:
-            if rows is None:
-                n_rec = -(-cfg.n_steps // cfg.record_stride)
-                rows = torch.zeros((n_rec, 8), device=device)
-            rows = all_gather(rows, mesh)[owner * mesh.shape[1]]
-        clock.add("gather", t0, clock.mark())
+        with profiling.span("gather", "device"):
+            both = gather_rays(torch.stack([flux_o, flux_x], dim=1), mesh,
+                               n_rays, nf)
+            flux_o, flux_x = both[:, 0], both[:, 1]
+            if collect_center:
+                if rows is None:
+                    n_rec = -(-cfg.n_steps // cfg.record_stride)
+                    rows = torch.zeros((n_rec, 8), device=device)
+                rows = all_gather(rows, mesh)[owner * mesh.shape[1]]
     center_los = None
     if collect_center:
         center_los = _center_los(rows, start[p_center], theta_los)

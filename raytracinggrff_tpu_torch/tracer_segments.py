@@ -25,6 +25,7 @@ from .grids import UniformGrid
 from .ops.trace_segment import trace_segment
 from .parallel.mesh import all_gather, shard_rays
 from .tracer import gradient_cubes, init_k_vectors
+from .utils import profiling
 
 
 class SegmentTraceResult(NamedTuple):
@@ -116,12 +117,16 @@ def iter_trace_segments(omega_pe_cube, ne_cube, te_cube, b_cube,
     'shard_live_steps', per ray shard the steps of records with S > 0 and
     a finite position (summed on the device, read once at the end and
     all-gathered), and 'straggler_factor', their max over their mean. So
-    every rank of the group must run the generator to its end."""
+    every rank of the group must run the generator to its end.
+
+    Span (utils/profiling): "trace_inputs", the kernel cubes and the start
+    state, on the device clock."""
     if mesh is not None:
         start, kdir = shard_rays(start, mesh), shard_rays(kdir, mesh)
-    tcube, scube = prepare_trace_inputs(omega_pe_cube, ne_cube, te_cube,
-                                        b_cube, grid, bvec)
-    state = initial_state(tcube, grid, freq_hz, start, kdir)
+    with profiling.span("trace_inputs", "device"):
+        tcube, scube = prepare_trace_inputs(omega_pe_cube, ne_cube, te_cube,
+                                            b_cube, grid, bvec)
+        state = initial_state(tcube, grid, freq_hz, start, kdir)
     segments = run_segments(tcube, scube, state, grid, dt, n_steps,
                             record_stride, trace_crosssections,
                             perturb_ratio, seg_records, s_mode)
