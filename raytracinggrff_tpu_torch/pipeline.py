@@ -37,7 +37,7 @@ from .parallel.mesh import (RayMesh, all_gather, gather_rays, shard_freqs,
 from .sampler import LosSamples, valid_and_ds
 from .tracer import check_s_mode
 from .tracer_segments import iter_trace_segments
-from .utils import profiling
+from .utils import npz, profiling
 from .utils.plotting import inspection_pixel_index
 
 
@@ -233,7 +233,10 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
     included), "trace" ("trace_inputs", the stacked kernel cubes and the
     start state, included), "transfer", "finish". On the host clock:
     "read" (the HDF4 reads), "upload" (the copies to the device), "rays"
-    (the ray starts) and, with out_path, "write" (the .npz).
+    (the ray starts) and, with out_path, "write" (the .npz, deflated on
+    the host's cores by utils/npz.savez_compressed), with the write's
+    deflate jobs ("write_chunks") and the threads that ran them
+    ("write_threads").
 
     With `mesh` (a parallel.mesh.RayMesh, one per rank) the map runs on
     mesh.device, which a conflicting `device` may not contradict: each
@@ -328,9 +331,11 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
             "y_coords": ys * R_SUN_M,
         }
         writer = mesh is None or mesh.rank == 0
+        written = {}
         if out_path and writer:
             with profiling.span("write"):
-                np.savez_compressed(out_path, **result)
+                chunks, threads = npz.savez_compressed(out_path, **result)
+            written = {"write_chunks": chunks, "write_threads": threads}
             log(f"Saved {out_path}")
         result["_sampled"] = center_los
         if save_plots and out_path and writer:
@@ -342,7 +347,7 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
             save_center_pixel_plot(center_los, cfg.n_pix, out_path,
                                    p_index=0)
         if rec is not None:
-            timings.update(rec.totals(), segments=n_segments,
+            timings.update(rec.totals(), segments=n_segments, **written,
                            **(stats or {}))
     return result
 
@@ -516,7 +521,7 @@ def resample_mas_los(model_path, n_pix=128, x_range=(-1.44, 1.44),
         "z_coords": z_rsun * R_SUN_M,
     }
     if out_path:
-        np.savez_compressed(out_path, **result)
+        npz.savez_compressed(out_path, **result)
         if verbose:
             print(f"LOS data saved to {out_path}")
     return result
@@ -573,9 +578,7 @@ def synthetic_ff(los_data, freq0, nfreq, freq_log_step, out_path=None,
         "x_coords": x_coords, "y_coords": y_coords,
     }
     if out_path:
-        np.savez_compressed(str(out_path) + ".npz"
-                            if not str(out_path).endswith(".npz")
-                            else out_path, **result)
+        npz.savez_compressed(out_path, **result)
         if verbose:
             print(f"Saved {out_path}")
     return result

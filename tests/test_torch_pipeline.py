@@ -161,6 +161,24 @@ def test_model_path_matches_jax_xla(corona, tmp_path):
     assert port["_sampled"] is None
 
 
+def test_written_map_equals_the_returned_one(cubes, tmp_path):
+    """The .npz of a map (its name given without the suffix) holds the
+    returned arrays, and its timings count the write's deflate jobs."""
+    timings = {}
+    port = run_ray_tracing_emission(
+        cubes=cubes, out_path=tmp_path / "map", verbose=False, device="cpu",
+        timings=timings, config=RayEmissionConfig(
+            n_pix=8, x_fov=1.3, freq_hz=150e6, grid_n=40, grid_extent=2.5,
+            z_observer=2.5, dt=1e-2, n_steps=200, record_stride=10))
+    with np.load(tmp_path / "map.npz") as data:
+        assert set(data.files) == set(port) - {"_sampled"}
+        for k in data.files:
+            np.testing.assert_array_equal(data[k], port[k], strict=True)
+    assert timings["write_chunks"] >= 1
+    assert 1 <= timings["write_threads"] <= timings["write_chunks"]
+    assert timings["write"] >= 0.0
+
+
 @pytest.mark.parametrize("option", [{"mesh": object()}])
 def test_mesh_option_must_be_a_ray_mesh(corona, option):
     """A mesh that is not a parallel.mesh.RayMesh (a JAX Mesh, say) is

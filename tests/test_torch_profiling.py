@@ -184,7 +184,9 @@ def test_map_timings_name_every_span(corona, tmp_path, write):
     tiny_map(corona, out_path=out, timings=timings)
     spans = {"read", "upload", "rays", "trace_inputs"} | (
         {"write"} if write else set())
-    assert set(timings) == STAGES | spans | {"segments"}
+    counts = {"segments"} | ({"write_chunks", "write_threads"} if write
+                             else set())
+    assert set(timings) == STAGES | spans | counts
     assert timings["segments"] == 2
     assert all(timings[k] >= 0.0 for k in STAGES | spans)
     assert timings["resample"] >= timings["read"] + timings["upload"]
