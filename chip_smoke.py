@@ -16,8 +16,9 @@ their CLIs, the production map over multi-device meshes (spawned and from torchr
 map against the float64 transfer reference, the FMA build against the
 shipped exact build over whole traces and maps, the benchmark harness,
 a MAS time series stepped through MASModel.at_time, the transfer folds
-against their plain versions, alone and inside whole maps, and the
-resample, sampler and scan kernels against theirs.
+against their plain versions, alone and inside whole maps, the
+resample, sampler and scan kernels against theirs, and the record fold's
+counts against a plain count.
 Phases:
   1. versions, card, kernel build: the shipped library (-fmad=false) and
      the FMA build (FMA_NVCC_FLAGS, for phase 14), one nvcc each, started
@@ -113,6 +114,16 @@ Phases:
      voxels, 100 frequencies, 50 temperatures), free-free and with
      gyroresonance, through the DEM-scan kernel and the plain recurrence:
      RL equal, the scan alone timed
+ 19. the record fold's counts (ops/transfer_fold.fold_counts, kernel
+     rgrff_fold_counts): on fold_scene's canonical gyroresonance segment
+     (65,536 rays x 64 records x 8 rows, B of order 10 G, row 7 cos
+     theta(B, k)) and at the sweep's 16,384 rays, with theta_mode 'los'
+     and without: [stepped from, taken] equal to fold_counts_plain's on
+     the same records and the taken ones to fold_records_bound's, one
+     launch a call, timed; then phase 7's gyroresonance map (256^2 x 5000
+     x 128^3, 11 frequencies) under torch.profiler: one count launch a
+     segment, each segment's counts equal to fold_counts_plain's on the
+     records its fold was given, and the map equal to the untraced one
 Each path that traces rays runs with the launch counts set to 0 just
 before it and checks them against its segment count just after: the
 trace kernel's and the record fold's, one launch each a segment; a LOS
@@ -1812,6 +1823,92 @@ def phase_fold(out, tmp, los6, device="cuda", n_pix=256, n_steps=5000,
                              bound_by=bound[1], max_abs_err=absd)
 
 
+def phase_counts(tmp, device="cuda", n_pix=256, sweep_pix=128,
+                 n_steps=5000, grid_n=128):
+    """Phase 19: the record fold's counts against fold_counts_plain, alone
+    on fold_scene(n_pix) and fold_scene(sweep_pix) with and without
+    theta_mode 'los', then in phase 7's gyroresonance map (SLICE's with
+    `n_pix`, `n_steps` and `grid_n`, mechanism 7, theta_mode 'los', 11
+    frequencies at log step 0.01) under torch.profiler."""
+    from raytracinggrff_tpu_torch.grids import UniformGrid
+    from raytracinggrff_tpu_torch.mas.model import (MASModel,
+                                                    synthetic_mas_model)
+    from raytracinggrff_tpu_torch.ops import transfer_fold as tf
+    from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
+                                                   prepare_cubes,
+                                                   run_ray_tracing_emission)
+    for pix in (n_pix, sweep_pix):
+        recs, start = fold_scene(pix)
+        prev = torch.as_tensor(start, device=recs.device)
+        n = recs.shape[2]
+        for theta_los in (False, True):
+            counts = torch.zeros(2, dtype=torch.int64, device=recs.device)
+            reset_counts()
+            tf.fold_counts(recs, prev, counts, theta_los)
+            check_kernel("19", "transfer_fold", "counts", 1, device)
+            want = tf.fold_counts_plain(recs, prev, theta_los)
+            taken = fold_records_bound(recs, prev, 1, 7,
+                                       theta_los=theta_los)[2]
+            got = counts.tolist()
+            assert torch.equal(counts, want), (pix, theta_los, got, want)
+            assert got[1] == taken and 0 < got[1] <= got[0], (got, taken)
+
+            def count():
+                tf.fold_counts(recs, prev, counts, theta_los)
+
+            what = "theta_mode 'los'" if theta_los else "fixed theta"
+            say(f"[19] fold counts, {n} rays x {recs.shape[0]} records, "
+                f"{what}: [stepped from, taken] {got}, equal to the plain "
+                f"count's, fold_records_bound takes {taken}; "
+                f"{cuda_ms(count, reps=20):.4f} ms "
+                f"({device_ms(count):.4f} ms on the device alone)")
+        del recs
+
+    model = synthetic_mas_model(Path(tmp) / "corona_counts", b0_gauss=50.0)
+    grid = UniformGrid.cube(3.0, grid_n)
+    cubes = prepare_cubes(MASModel(model), grid, 0.0, verbose=False,
+                          keep_bvec=True, device=device)
+    cfg = RayEmissionConfig(**dict(SLICE, n_pix=n_pix, n_steps=n_steps,
+                                   grid_n=grid_n, nfreq=11,
+                                   freq_log_step=0.01, mechanism=7,
+                                   theta_mode="los"))
+    untraced = run_ray_tracing_emission(cubes=cubes, config=cfg,
+                                        verbose=False, device=device)
+    seen, fold = [], tf.fold_records
+
+    def spy(recs, carry, prev, *args, **kw):
+        seen.append((recs.clone(), prev.clone()))
+        return fold(recs, carry, prev, *args, **kw)
+
+    timings = {}
+    tf.fold_records = spy
+    reset_counts()
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]):
+            traced = run_ray_tracing_emission(cubes=cubes, config=cfg,
+                                              verbose=False, device=device,
+                                              timings=timings)
+    finally:
+        tf.fold_records = fold
+    n_seg = n_segments(cfg)
+    check_kernel("19", "transfer_fold", "counts", n_seg, device)
+    counts = timings["fold_counts"]
+    assert len(counts) == len(seen) == n_seg, (len(counts), len(seen))
+    for (recs, prev), got in zip(seen, counts):
+        want = tf.fold_counts_plain(recs, prev, True).tolist()
+        assert got == want, (got, want)
+    for key in ("emission_cube", "emission_polVI_cube"):
+        np.testing.assert_array_equal(traced[key], untraced[key])
+    say(f"[19] gyroresonance map {n_pix}^2 x {n_steps} x {grid_n}^3 at 11 "
+        f"frequencies under torch.profiler: {n_seg} count launches, "
+        f"[stepped from, taken] a segment {counts} equal to the plain "
+        f"count's, span 'count' {1e3 * timings['count']:.4f} ms against "
+        f"'transfer' {1e3 * timings['transfer']:.4f} ms; the map equals "
+        f"the untraced one")
+
+
 @contextlib.contextmanager
 def plain_scenes():
     """Route the resample, the spherical sampler, the ds scan and the DEM
@@ -2249,6 +2346,8 @@ def main():
             phase_resample(out, tmp)
             phase_sample(out, tmp)
         phase_scans(out)
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_counts(tmp)
     say(f"total {time.perf_counter() - t_all:.1f} s")
     fold, vfold = out["fold"], out["voxel_fold"]
     kernels = [

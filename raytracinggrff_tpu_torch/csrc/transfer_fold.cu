@@ -19,6 +19,13 @@
 // Neither is a TPU kernel: in JAX both scans are XLA programs, one device
 // program a call. The plain torch versions (ops/transfer_fold.py) launch
 // about 271 small kernels a record, so they run at the host's launch rate.
+// A third entry, rgrff_fold_counts, counts what rgrff_fold_records does
+// with a segment's records, for the fold's roofline in traced runs: the
+// records it steps from (valid) and those it takes (valid, finite ne, te,
+// b and ds, ds > 0). Four lanes a ray step the records as the fold's lane
+// groups do, with the last valid position in registers and the fold's ds;
+// a block adds its counts with one atomic each. It is a kernel of its own
+// so that the fold is the same whether or not anything counts.
 //
 // Design: lane groups. A ray (a pixel) is served by G consecutive lanes of
 // one warp, G = 1, 2, 4 or 8 (a template parameter). Lane j of the group
@@ -826,6 +833,80 @@ void launch_voxels(const Launch& l, cudaStream_t stream, const void* ds,
       static_cast<const float*>(tx_in), static_cast<float*>(carry_out), *p);
 }
 
+// rgrff_fold_counts: kCountGroup lanes a ray, lane j of the group on
+// record r0 + j of each chunk, with the validity ballot and the last valid
+// position of fold_records_kernel, so that it counts what the fold does at
+// any group size. Four lanes a ray read a ray's record rows as whole 32-byte
+// sectors and give the latency of the segment's records four times the
+// lanes that one lane a ray gives. A warp adds its counts by shuffle, a
+// block in shared memory, and the block's sums go out in one atomic each.
+constexpr int kCountGroup = 4;
+
+__global__ void __launch_bounds__(kThreads)
+    fold_counts_kernel(const float* __restrict__ recs,
+                       const float* __restrict__ prev_in,
+                       unsigned long long* __restrict__ counts,
+                       const __grid_constant__ FoldParams p) {
+  __shared__ unsigned block_sums[2];
+  if (threadIdx.x < 2) block_sums[threadIdx.x] = 0;
+  __syncthreads();
+  const Group<kCountGroup> grp;
+  const int64_t ray_g =
+      (int64_t(blockIdx.x) * kThreads + threadIdx.x) / kCountGroup;
+  const bool live = ray_g < p.n_rays;
+  const int64_t ray = live ? ray_g : p.n_rays - 1;
+  const int64_t n = p.n_rays;
+  const bool theta_los = p.theta_per_voxel != 0;
+  float px = prev_in[3 * ray], py = prev_in[3 * ray + 1],
+        pz = prev_in[3 * ray + 2];
+  unsigned stepped = 0, taken = 0;
+  Record next = load_record(recs, n, ray, grp.j, p.n_steps, theta_los);
+  for (int r0 = 0; r0 < p.n_steps; r0 += kCountGroup) {
+    const Record c = next;
+    if (r0 + kCountGroup < p.n_steps)
+      next = load_record(recs, n, ray, r0 + kCountGroup + grp.j, p.n_steps,
+                         theta_los);
+    // as fold_records_kernel: validity, and ds from the highest valid lane
+    // below this one, else the position carried from the previous chunk
+    const bool valid = isfinite(c.x) && isfinite(c.y) && isfinite(c.z) &&
+                       isfinite(c.s) && c.s > 0.0f &&
+                       (!theta_los || isfinite(c.cos_t));
+    const unsigned vm = grp.ballot(valid);
+    const unsigned below = vm & ((1u << grp.j) - 1u);
+    const int src = below ? 31 - __clz(below) : grp.j;
+    float qx = grp.from(c.x, src), qy = grp.from(c.y, src),
+          qz = grp.from(c.z, src);
+    if (!below) {
+      qx = px;
+      qy = py;
+      qz = pz;
+    }
+    const int last = vm ? 31 - __clz(vm) : grp.j;
+    const float lx = grp.from(c.x, last), ly = grp.from(c.y, last),
+                lz = grp.from(c.z, last);
+    if (vm) {
+      px = lx;
+      py = ly;
+      pz = lz;
+    }
+    const float dx = c.x - qx, dy = c.y - qy, dz = c.z - qz;
+    const float ds = sqrtf(dx * dx + dy * dy + dz * dz) * p.r_sun_cm;
+    stepped += valid;
+    taken += valid && usable(c.ne, c.te, c.b, ds);
+  }
+  if (!live) stepped = taken = 0;
+  stepped = __reduce_add_sync(0xffffffffu, stepped);
+  taken = __reduce_add_sync(0xffffffffu, taken);
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&block_sums[0], stepped);
+    atomicAdd(&block_sums[1], taken);
+  }
+  __syncthreads();
+  if (threadIdx.x < 2)
+    atomicAdd(counts + threadIdx.x,
+              static_cast<unsigned long long>(block_sums[threadIdx.x]));
+}
+
 }  // namespace
 
 // Fold one segment's records into the carry. recs: (n_steps, 8, n_rays);
@@ -899,5 +980,23 @@ extern "C" int rgrff_fold_voxels(const void* ds, const void* te,
       launch_voxels<8>(l, s, ds, te, ne, b, valid, sarea, theta, mech, freqs,
                        tables, fo_in, fx_in, to_in, tx_in, carry_out, p);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Count what rgrff_fold_records does with one segment's records, called
+// with the same recs, prev_in and p: add the records it steps from to
+// counts[0] and those it takes to counts[1] (two int64 device counters).
+extern "C" int rgrff_fold_counts(const void* recs, const void* prev_in,
+                                 void* counts, const FoldParams* p,
+                                 void* stream) {
+  if (p == nullptr || p->n_rays < 0 || p->n_steps < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p->n_rays == 0) return 0;
+  const unsigned grid = static_cast<unsigned>(
+      (int64_t(p->n_rays) * kCountGroup + kThreads - 1) / kThreads);
+  fold_counts_kernel<<<grid, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(recs), static_cast<const float*>(prev_in),
+      static_cast<unsigned long long*>(counts), *p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -175,6 +175,10 @@ def load_library(path):
     lib.rgrff_fold_voxels.argtypes = [ptr] * 15 + [
         ctypes.POINTER(_FoldParams), ptr]
     lib.rgrff_fold_voxels.restype = ctypes.c_int
+    # recs, prev_in, counts, params, stream
+    lib.rgrff_fold_counts.argtypes = [ptr] * 3 + [
+        ctypes.POINTER(_FoldParams), ptr]
+    lib.rgrff_fold_counts.restype = ctypes.c_int
     # xs, ys, zs, params, stream
     lib.rgrff_resample_cube.argtypes = [ptr] * 3 + [
         ctypes.POINTER(_SphParams), ptr]

@@ -16,6 +16,11 @@ grff/transfer.make_voxel_update:
     validity and the source areas, with an optional per-voxel theta
     (radians) and mechanism mask (int32). It replaces _grff_transfer_jit
     (raytracinggrff_tpu/grff/transfer.py:231-275).
+  * fold_counts counts what fold_records does with a segment's records:
+    the records it steps from (valid) and those it takes (valid, with
+    finite ne, te, b and ds, ds > 0), for the fold's roofline. It is a
+    kernel of its own, launched only where a caller counts, so that the
+    fold is the same whether or not anything counts.
 
 In JAX both are XLA scans. Here each has a hand-written CUDA kernel
 (csrc/transfer_fold.cu: a group of group_size(Nf, n_rays) lanes a ray,
@@ -24,7 +29,7 @@ frequency-free terms once; the carry in registers across the call) and a
 plain version that loops over records or voxels in torch. Dispatch is by
 device, as for ops/trace_segment: CPU tensors run the plain version; CUDA
 tensors launch the kernel or raise. LAUNCHES counts the kernel launches of
-each fold ('records', 'voxels').
+each fold ('records', 'voxels') and of the counts ('counts').
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ from .los_scans import record_step
 RECORD_ROWS = 8
 GAUNTS = ("dulk", "exact")
 # kernel launches of each fold, counted where the kernel is launched
-LAUNCHES = {"records": 0, "voxels": 0}
+LAUNCHES = {"records": 0, "voxels": 0, "counts": 0}
 # lanes a launch should keep busy: 2,048 warps, about 16 a SM of an H100;
 # with fewer, group_size gives a ray more lanes (csrc/transfer_fold.cu)
 FILL_LANES = 65536
@@ -113,6 +118,18 @@ def fold_params(n_rays, nf, n_steps, pixel_area_cm2, theta_deg, mechanism,
         sqrt_2pi=math.sqrt(2.0 * math.pi))
 
 
+def _check_tensors(device, named):
+    """Refuse `named` (name, tensor, dtype) triples of another dtype, on
+    another device than `device`, or not contiguous."""
+    for name, t, dtype in named:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the fold on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def _check_common(device, named, carry, n, freqs, gaunt):
     """Types, devices and contiguity shared by both folds: `named` (name,
     tensor, dtype) triples, freqs (Nf,) and the carry (four (n, Nf) float32
@@ -125,13 +142,7 @@ def _check_common(device, named, carry, n, freqs, gaunt):
             raise ValueError(f"carry must hold 4 tensors, got {len(carry)}")
         named += [(f"carry[{i}]", c, torch.float32)
                   for i, c in enumerate(carry)]
-    for name, t, dtype in named:
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, the fold on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_tensors(device, named)
     if freqs.dim() != 1:
         raise ValueError(f"freqs must be (Nf,), got {tuple(freqs.shape)}")
     nf = freqs.shape[0]
@@ -222,6 +233,51 @@ def fold_records_plain(recs, carry, prev, freqs, pixel_area_cm2,
         carry = update(carry, dsv, rec[5], rec[4], rec[6], valid, sarea,
                        theta_k)
     return tuple(carry), prev.contiguous()
+
+
+def fold_counts(recs, prev, counts, theta_los=False):
+    """Add to `counts` ((2,) int64) the records of `recs` (rps, 8, n_rays)
+    that fold_records steps from, from the last valid positions `prev`
+    (n_rays, 3) it was given, and those it takes: valid by
+    los_scans.record_step (with theta_los also where row 7 is finite), and
+    taken where ne, te, b and ds are finite and ds > 0. CPU tensors count
+    in plain torch; CUDA tensors launch the counting kernel."""
+    device = recs.device
+    if recs.dim() != 3 or recs.shape[1] != RECORD_ROWS:
+        raise ValueError(f"recs must be (rps, {RECORD_ROWS}, n_rays), got "
+                         f"{tuple(recs.shape)}")
+    n = recs.shape[2]
+    _check_tensors(device, [("recs", recs, torch.float32),
+                            ("prev", prev, torch.float32),
+                            ("counts", counts, torch.int64)])
+    if tuple(prev.shape) != (n, 3) or tuple(counts.shape) != (2,):
+        raise ValueError(f"prev must be ({n}, 3) and counts (2,), got "
+                         f"{tuple(prev.shape)} and {tuple(counts.shape)}")
+    if device.type == "cpu":
+        counts += fold_counts_plain(recs, prev, theta_los)
+        return
+    _kernel_device(device, n, 1)
+    # the fold's parameters that the count reads: rays, records, the ds
+    # scale and whether row 7 decides validity
+    params = fold_params(n, 1, recs.shape[0], 1.0, 90.0, MECH_FREEFREE, 0,
+                         "dulk", theta_los)
+    _launch("counts", device, recs.data_ptr(), prev.data_ptr(),
+            counts.data_ptr(), ctypes.byref(params))
+
+
+def fold_counts_plain(recs, prev, theta_los=False):
+    """fold_counts in plain torch, record by record: [stepped from,
+    taken] as an int64 tensor."""
+    scale = np.float32(R_SUN_CM)
+    out = torch.zeros(2, dtype=torch.int64, device=recs.device)
+    for rec in recs:
+        valid, ds, prev = record_step(
+            rec[0:3].T, rec[3], prev, scale,
+            torch.isfinite(rec[7]) if theta_los else None)
+        taken = (valid & torch.isfinite(rec[4:7]).all(dim=0)
+                 & torch.isfinite(ds) & (ds > 0))
+        out += torch.stack([valid.sum(), taken.sum()])
+    return out
 
 
 def fold_voxels(ds, te, ne, b, valid, freqs, pixel_area_cm2, sarea=None,

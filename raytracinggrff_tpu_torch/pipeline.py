@@ -36,7 +36,7 @@ from .parallel.mesh import (RayMesh, all_gather, gather_rays, shard_freqs,
                             shard_rays)
 from .sampler import LosSamples, valid_and_ds
 from .tracer import check_s_mode
-from .tracer_segments import iter_trace_segments
+from .tracer_segments import iter_trace_segments, segment_plan
 from .utils import npz, profiling
 from .utils.plotting import inspection_pixel_index
 
@@ -236,7 +236,12 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
     (the ray starts) and, with out_path, "write" (the .npz, deflated on
     the host's cores by utils/npz.savez_compressed), with the write's
     deflate jobs ("write_chunks") and the threads that ran them
-    ("write_threads").
+    ("write_threads"). While torch.profiler records, each segment's
+    records are also counted as the record fold takes them ("fold_counts":
+    [stepped from, taken] a segment, ops/transfer_fold.fold_counts, a
+    launch of its own before the fold in a device span of its own,
+    "count", outside "transfer"), on the device, read after the stages'
+    synchronize; untraced maps count nothing.
 
     With `mesh` (a parallel.mesh.RayMesh, one per rank) the map runs on
     mesh.device, which a conflicting `device` may not contradict: each
@@ -298,9 +303,16 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
         pixel_area_cm2 = pixel_size_cm * pixel_size_cm
 
         stats = {} if mesh is not None else None
+        fold_counts = None
+        if rec is not None and torch.autograd._profiler_enabled():
+            plan, _ = segment_plan(cfg.n_steps, cfg.record_stride,
+                                   cfg.seg_records)
+            fold_counts = torch.zeros((len(plan), 2), dtype=torch.int64,
+                                      device=device)
         flux_o, flux_x, n_segments, center_los = _streamed_trace_transfer(
             cubes, grid, cfg, start, kdir, frequencies_hz, pixel_area_cm2,
-            device, collect_center=save_plots, mesh=mesh, stats=stats)
+            device, collect_center=save_plots, mesh=mesh, stats=stats,
+            fold_counts=fold_counts)
 
         with profiling.span("finish", "device"):
             freqs = torch.as_tensor(frequencies_hz, dtype=torch.float32,
@@ -349,6 +361,8 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
         if rec is not None:
             timings.update(rec.totals(), segments=n_segments, **written,
                            **(stats or {}))
+            if fold_counts is not None:
+                timings["fold_counts"] = fold_counts.tolist()
     return result
 
 
@@ -368,7 +382,7 @@ def _center_los(rows, start, with_cos):
 
 def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
                              pixel_area_cm2, device, collect_center=False,
-                             mesh=None, stats=None):
+                             mesh=None, stats=None, fold_counts=None):
     """Stream trace segments into the transfer carry on the device: one
     ops/transfer_fold.fold_records call a segment (the JAX package's
     stream_seg, pipeline.py:377-396). Per record: a record is valid
@@ -388,7 +402,10 @@ def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
     (pipeline.py:421-429 of the JAX package); one all_gather of both
     fluxes, and one of the inspection ray's records from the rank that
     traced it, end the call on every rank, and `stats` receives the
-    trace's shard statistics (iter_trace_segments)."""
+    trace's shard statistics (iter_trace_segments).
+
+    `fold_counts`, an (n_segments, 2) int64 tensor on `device`, receives
+    in row k what segment k's fold did (transfer_fold.fold_counts)."""
     n_rays, nf = start.shape[0], len(frequencies_hz)
     p_center = inspection_pixel_index(cfg.n_pix)
     local_start, local_freqs, p_local = start, frequencies_hz, p_center
@@ -418,6 +435,12 @@ def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
         if recs is None:
             break
         n_segments += 1
+        if fold_counts is not None:
+            # a span of its own, outside "transfer": what the fold will do
+            with profiling.span("count", "device"):
+                transfer_fold.fold_counts(recs, prev,
+                                          fold_counts[n_segments - 1],
+                                          theta_los)
         with profiling.span("transfer", "device"):
             if collect_here:
                 # a copy, so the segment's record block is not kept alive

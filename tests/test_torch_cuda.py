@@ -322,6 +322,82 @@ def test_fold_records_kernel_matches_plain_at_every_group_size(
     assert torch.equal(prev, prev_ref)
 
 
+
+@pytest.mark.parametrize("n_rays", FOLD_RAYS + [4096])
+@pytest.mark.parametrize("n_rec", [1, 7, 32])
+@pytest.mark.parametrize("theta_los", [False, True])
+def test_fold_counts_kernel_matches_plain(cuda, theta_los, n_rec, n_rays):
+    """The counting kernel's records stepped from and taken equal the
+    plain count's, added to what the counters held, in one launch."""
+    recs, start, _ = _fold_records(cuda, n_rays=n_rays)
+    recs = recs[:n_rec].contiguous()
+    counts = torch.tensor([3, 4], dtype=torch.int64, device=cuda)
+    launches = tf.LAUNCHES["counts"]
+    tf.fold_counts(recs, start, counts, theta_los)
+    want = tf.fold_counts_plain(recs, start, theta_los)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES["counts"] == launches + 1
+    assert counts.tolist() == [3 + int(want[0]), 4 + int(want[1])]
+    assert want[1] <= want[0] <= n_rec * n_rays
+    assert want[1] > 0 or n_rec * n_rays < 32
+
+
+def test_map_counts_folds_only_while_traced(cuda, tmp_path, monkeypatch):
+    """A gyroresonance map with timings launches no count untraced;
+    traced, one a segment, each equal to a count of the records its fold
+    was given by the plain rule (los_scans.record_step, finite fields,
+    ds > 0), and the map is the untraced one."""
+    from raytracinggrff_tpu_torch.constants import R_SUN_CM
+    from raytracinggrff_tpu_torch.mas.model import (MASModel,
+                                                    synthetic_mas_model)
+    from raytracinggrff_tpu_torch.ops.los_scans import record_step
+    from raytracinggrff_tpu_torch.pipeline import (prepare_cubes,
+                                                   run_ray_tracing_emission)
+    model = MASModel(synthetic_mas_model(tmp_path / "m", nphi=16, ntheta=13,
+                                         nr=24, b0_gauss=50.0))
+    cubes = prepare_cubes(model, UniformGrid.cube(3.0, 48), 0.0,
+                          verbose=False, keep_bvec=True, device=cuda)
+    cfg = dict(n_pix=24, grid_n=48, dt=2e-2, n_steps=600, s_input_on=True,
+               nfreq=11, freq_log_step=0.01, mechanism=7, theta_mode="los",
+               seg_records=16)
+    seen, fold = [], tf.fold_records
+
+    def spy(recs, carry, prev, *a, **k):
+        seen.append((recs.clone(), prev.clone()))
+        return fold(recs, carry, prev, *a, **k)
+
+    monkeypatch.setattr(tf, "fold_records", spy)
+    timings = {}
+    launches = tf.LAUNCHES["counts"]
+    untraced = run_ray_tracing_emission(cubes=cubes, verbose=False,
+                                        device=cuda, timings=timings, **cfg)
+    assert "fold_counts" not in timings and "count" not in timings
+    assert tf.LAUNCHES["counts"] == launches
+    seen.clear()
+    traced_t = {}
+    with torch.profiler.profile():
+        traced = run_ray_tracing_emission(cubes=cubes, verbose=False,
+                                          device=cuda, timings=traced_t,
+                                          **cfg)
+    counts = traced_t["fold_counts"]
+    assert len(counts) == len(seen) == traced_t["segments"]
+    assert traced_t["count"] > 0.0
+    assert tf.LAUNCHES["counts"] == launches + len(counts)
+    for (recs, prev), got in zip(seen, counts):
+        stepped = taken = 0
+        for rec in recs:
+            valid, ds, prev = record_step(rec[0:3].T, rec[3], prev,
+                                          np.float32(R_SUN_CM),
+                                          torch.isfinite(rec[7]))
+            stepped += int(valid.sum())
+            taken += int((valid & torch.isfinite(rec[4:7]).all(dim=0)
+                          & torch.isfinite(ds) & (ds > 0)).sum())
+        assert got == [stepped, taken]
+    assert sum(t for _, t in counts) > 0
+    for k in ("emission_cube", "emission_polVI_cube"):
+        assert np.array_equal(traced[k], untraced[k])
+
+
 def _fold_voxels(device, nz=20, n_pix=300, seed=1):
     """Voxels with invalid ones, NaN ne, ds = 0 and overdense ones, per-voxel
     theta (exact 90s among them), source areas and mechanism masks; pixel 5
