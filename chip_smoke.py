@@ -25,7 +25,11 @@ Phases:
      together
   2. kernel vs plain on a non-reflecting scene, every ray within tolerance
   3. kernel vs plain on the canonical scene's first segment (>= 99% of
-     rays within tolerance), with both times and the kernel's bound
+     rays within tolerance), with both times and the kernel's bound; then
+     the canonical trace's eight segments one by one, each with the rays
+     frozen at its launch (k not finite), its live records, its time and
+     its bound, and the first segment that starts with frozen rays held
+     to the plain version bit for bit (records rows 0-6 and the state)
   4. the main path at full size from a synthetic MAS model, run twice
   5. the map through the kernel vs through the plain version (n_pix 32),
      max |dV/I| <= 1e-4
@@ -582,6 +586,59 @@ def phase_canonical(out):
         f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.4f} of it")
     out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by)
+
+
+def phase_segments(out, n_pix=256, n_steps=5000):
+    """Phase 3 (b): the canonical trace (n_pix^2 rays x 4,991 steps) segment
+    by segment, each launch timed (cuda_ms, 5 launches from its own input
+    state) beside the rays whose k is not finite at its launch (their lanes
+    stop within two steps), the share of its last record's rays that are
+    live (S > 0) and segment_bound_ms; segment 0 is phase 3's control. The
+    first segment that starts with frozen rays, live lanes beside frozen
+    ones, is held to the plain version: records rows 0-6 and the state bit
+    for bit."""
+    from raytracinggrff_tpu_torch.ops.trace_segment import (
+        trace_segment, trace_segment_plain)
+    from raytracinggrff_tpu_torch.tracer_segments import (initial_state,
+                                                          prepare_trace_inputs,
+                                                          segment_plan)
+    grid, f, start, kdir = canonical_scene(n_pix)
+    tcube, scube = prepare_trace_inputs(f["wpe"], f["ne"], f["te"], f["b"],
+                                        grid)
+    state = initial_state(tcube, grid, 75e6, start, kdir)
+    plan, _ = segment_plan(n_steps, 10, 64)
+    rows, held = [], False
+    for i, (n_first, rps) in enumerate(plan):
+        args = (tcube, scube, state, grid, 6e-3, n_first, 10, rps)
+        frozen = int((~torch.isfinite(state[3:6])).any(dim=0).sum())
+        ms = cuda_ms(lambda: trace_segment(*args), reps=5)
+        st_k, rec_k = trace_segment(*args)
+        bound_ms, _ = segment_bound_ms(tcube, scube, state, rec_k, n_first,
+                                       10)
+        live = float((rec_k[-1, 3] > 0).double().mean())
+        rows.append(dict(segment=i, frozen=frozen, live_after=live, ms=ms,
+                         bound_ms=bound_ms))
+        say(f"[3] (b) segment {i} ({n_first} + {rps - 1} x 10 steps): "
+            f"{frozen} of {state.shape[1]} rays frozen at launch; live after "
+            f"{live:.4f}; kernel {ms:.4f} ms, bound {bound_ms:.4f} ms, "
+            f"{bound_ms / ms:.4f} of it")
+        if frozen and not held:
+            st_p, rec_p = trace_segment_plain(*args)
+            a = torch.cat([rec_k[:, :7].flatten(), st_k.flatten()])
+            b = torch.cat([rec_p[:, :7].flatten(), st_p.flatten()])
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            say(f"[3] (b) segment {i}, kernel vs plain: records rows 0-6 and "
+                f"state {int(same.sum())} of {same.numel()} values bit for "
+                f"bit")
+            assert same.all(), "the kernel's exit parted from the plain"
+            held = True
+        state = st_k
+    assert held, "no segment started with frozen rays"
+    total = sum(r["ms"] for r in rows)
+    say(f"[3] (b) whole trace: {total:.3f} ms in {len(rows)} launches "
+        f"({n_pix ** 2 * steps_run(n_steps, 10) / total * 1e3:.4g} "
+        f"ray-steps/s)")
+    out["segments"] = rows
 
 
 def phase_main(out, tmp):
@@ -2323,6 +2380,7 @@ def main():
     with torch.inference_mode():
         phase_small(out)
         phase_canonical(out)
+        phase_segments(out)
         with tempfile.TemporaryDirectory() as tmp:
             one = phase_main(out, tmp)
         cubes = phase_map()

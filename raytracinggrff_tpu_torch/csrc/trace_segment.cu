@@ -47,6 +47,25 @@
 // 32-bit float4 indices unless the wrapper asks for 64-bit ones
 // (wide_index, for cubes of 2^31 float4 or more).
 //
+// A frozen ray steps no more. Once k has a non-finite component, rhs
+// gives dr = 0 at every position, so a step returns its input (a -0
+// coordinate turns +0 once); a ray that leaves the cube gets a NaN k
+// within the step. A lane whose step returns (r, k) bit for bit, NaN
+// payloads included, with a cross-section ratio rho of +0 or NaN (or no
+// ratio, cross-sections off) is frozen for the rest of the launch: the
+// step is a pure function of (r, k) (the cache changes no result), so
+// every later step returns (r, k) and rho again. Its remaining steps are
+// skipped, and that changes no bit: for rho in {+0, NaN} and any acc,
+// acc*rho*rho == acc*rho, so the block that froze keeps its acc, and a
+// later block's acc and last are 1*rho == rho. A frozen lane so only
+// multiplies cum and writes its records. Lanes leave the step loop one by
+// one, and a warp stops issuing steps when its last lane has frozen, so a
+// leaving ray costs at most two steps past its exit. A lane that never
+// freezes pays one comparison of six words a step, about 1% of the
+// canonical segment's time. What bounds the kernel then: the arithmetic
+// of live rays, and warps held by their last live lane (a warp's lanes
+// are 32 neighbouring pixels, which leave at close steps).
+//
 // Compile-time switches, for measurement only (profile_slice.py phase
 // cache passes them; the shipped build sets neither):
 //   RGRFF_CACHE_OFF        every evaluation misses: the uncached design.
@@ -296,14 +315,25 @@ __device__ __forceinline__ V3 normalized(V3 e) {
   return {e.x / n, e.y / n, e.z / n};
 }
 
+// The bits in which a and b differ, ORed over x, y and z: 0 when they hold
+// the same bits, signed zeros and NaN payloads told apart. (Six integer
+// compares chained by AND cost the canonical segment 3%, this 1%.)
+__device__ __forceinline__ unsigned diff_bits(V3 a, V3 b) {
+  return (__float_as_uint(a.x) ^ __float_as_uint(b.x)) |
+         (__float_as_uint(a.y) ^ __float_as_uint(b.y)) |
+         (__float_as_uint(a.z) ^ __float_as_uint(b.z));
+}
+
 // One RK4 step plus its cross-section ratio
-// (tracer.py::_step_with_crosssection and _transverse_basis).
+// (tracer.py::_step_with_crosssection and _transverse_basis); `same`
+// tells whether the step returned (r, k) bit for bit.
 template <typename Idx>
 __device__ __forceinline__ float step_with_crosssection(
     const float4* __restrict__ tcube, const TraceParams& p,
-    RayCache<Idx>& cache, V3& r, V3& k) {
+    RayCache<Idx>& cache, V3& r, V3& k, bool& same) {
   V3 rn, kn;
   rk4<kCentral>(tcube, p, cache, r, k, rn, kn);
+  same = (diff_bits(rn, r) | diff_bits(kn, k)) == 0u;
   const V3 rd = sub(rn, r);
   const float dnorm = sqrtf(dot(rd, rd)) + 1e-32f;
   const V3 t = {rd.x / dnorm, rd.y / dnorm, rd.z / dnorm};
@@ -376,18 +406,27 @@ __global__ void __launch_bounds__(kThreads)
   float cum = state_in[6 * n + ray];
   RayCache<Idx> cache;
   cache.init();
+  bool frozen = false;  // the last step returned (r, k) and a ratio rho
+  float rho = 0.f;      // of +0 or NaN: so will every step left
   for (int b = 0; b < p.rps; ++b) {
     const int steps = b == 0 ? p.n_first : p.stride;
     float acc = 1.f;   // this block's S product, as in tracer.py::do_steps
     float last = 1.f;  // the ratio of the block's last step
     for (int s = 0; s < steps; ++s) {
+      if (frozen) {  // the block's steps left, as one: acc*rho*rho == acc*rho
+        if (CS) acc *= rho;
+        if (PS) last = rho;
+        break;
+      }
       if (CS) {
-        const float ratio = step_with_crosssection(tcube, p, cache, r, k);
-        acc *= ratio;
-        if (PS) last = ratio;
+        rho = step_with_crosssection(tcube, p, cache, r, k, frozen);
+        acc *= rho;
+        if (PS) last = rho;
+        frozen = frozen && (__float_as_uint(rho) == 0u || isnan(rho));
       } else {
         V3 rn, kn;
         rk4<kCentral>(tcube, p, cache, r, k, rn, kn);
+        frozen = (diff_bits(rn, r) | diff_bits(kn, k)) == 0u;
         r = rn;
         k = kn;
       }

@@ -206,6 +206,100 @@ def test_kernel_continues_across_segments(cuda, s_mode):
                                atol=0, equal_nan=True)
 
 
+# The frozen-lane exit (csrc/trace_segment.cu): a lane whose step returns
+# its input stops stepping. _freeze_scene's 160 rays, five warps: rays
+# 0-63 head +x from x = 1.90-1.999 and leave the cube at staggered steps
+# 1-48 (a lane freezes one step later: mid-block, on a block's last step
+# and on the first launch's last step, FREEZE_LAUNCHES[0]); rays 64-95
+# start outside, so their warp is frozen from the second launch on; rays
+# 96-127 start outside but for ray LIVE_LANE, which stays in the cube;
+# rays 128-159 mix NaN positions, -0.0 coordinates outside the cube, NaN
+# and infinite k inside it, and live rays.
+FREEZE_LAUNCHES = ((1, 5, 10), (5, 5, 4))    # (n_first, stride, rps)
+LIVE_LANE = 111
+
+
+def _freeze_scene(device, bvec):
+    tcube, scube, grid = _cubes(device, bvec, 33)
+    start, kdir = _bundle(160, seed=2)
+    start[:64] = np.column_stack([np.linspace(1.90, 1.999, 64),
+                                  np.full(64, 0.3), np.full(64, 0.5)])
+    kdir[:64] = (1.0, 0.0, 0.0)
+    outside = np.r_[64:128]
+    start[outside[outside != LIVE_LANE], 0] = np.linspace(2.2, 50.0, 63)
+    start[128:130] = np.nan
+    start[130:132] = (-0.0, 0.3, 2.5)
+    state = _state(tcube, grid, start, kdir)
+    state[3, 132:136] = float("nan")
+    state[4, 136:138] = float("inf")
+    return tcube, scube, state, grid
+
+
+def _freeze_steps(tcube, scube, state, grid, n_steps):
+    """Per ray, the first of n_steps single plain steps that returns its
+    state bit for bit with a ratio of +0 or NaN (0 if none does)."""
+    first = torch.zeros(state.shape[1], dtype=torch.int64,
+                        device=state.device)
+    for j in range(1, n_steps + 1):
+        nxt, rec = trace_segment_plain(tcube, scube, state, grid, 5e-3, 1, 1,
+                                       1, s_mode="per_step")
+        rho = rec[0, 3]
+        same = ((nxt[:6].view(torch.int32) == state[:6].view(torch.int32))
+                .all(dim=0) & ((rho.view(torch.int32) == 0) | rho.isnan()))
+        first = torch.where((first == 0) & same, j, first)
+        state = nxt
+    return first.cpu()
+
+
+def test_freeze_scene_covers_the_exit_cases(cuda):
+    """The scene of test_kernel_exit_matches_plain freezes lanes mid-block,
+    on a block's last step and on the first launch's last step; the warp
+    of rays 64-95 is frozen when the second launch starts, and LIVE_LANE
+    stays live through both launches among frozen lanes."""
+    tcube, scube, state, grid = _freeze_scene(cuda, False)
+    n_first, stride, rps = FREEZE_LAUNCHES[0]
+    n_steps = n_first + (rps - 1) * stride
+    first = _freeze_steps(tcube, scube, state, grid, n_steps)
+    ends = {n_first + b * stride for b in range(rps)}
+    leaving = first[:64].tolist()
+    assert any(0 < j and j not in ends for j in leaving)
+    assert any(j in ends and j < n_steps for j in leaving)
+    assert n_steps in leaving
+    assert (first[64:96] > 0).all() and (first[128:138] > 0).all()
+    st = state
+    for launch in FREEZE_LAUNCHES:
+        st, _ = trace_segment_plain(tcube, scube, st, grid, 5e-3, *launch)
+        if launch == FREEZE_LAUNCHES[0]:
+            assert (~torch.isfinite(st[3:6, 64:96])).any(dim=0).all()
+    assert torch.isfinite(st[3:6, LIVE_LANE]).all()
+    assert (~torch.isfinite(st[3:6, 96:128])).any(dim=0).sum() == 31
+
+
+@pytest.mark.parametrize("s_mode", ["cumulative", "per_step"])
+@pytest.mark.parametrize("bvec", [False, True])
+@pytest.mark.parametrize("crosssections", [True, False])
+def test_kernel_exit_matches_plain(cuda, exact, crosssections, bvec, s_mode):
+    """On _freeze_scene, two launches, the second continuing from the
+    kernel's state: the records (rows 0-6) and the state of each equal the
+    plain version's bit for bit in the exact build (NaN where it has NaN),
+    and within ROW_TOL in the FMA build."""
+    tcube, scube, state, grid = _freeze_scene(cuda, bvec)
+    for launch in FREEZE_LAUNCHES:
+        args = (tcube, scube, state, grid, 5e-3, *launch, 2.0,
+                crosssections)
+        st_k, rec_k = trace_segment(*args, s_mode=s_mode)
+        st_p, rec_p = trace_segment_plain(*args, s_mode=s_mode)
+        torch.cuda.synchronize()
+        _assert_records_match(rec_k, rec_p, exact)
+        if exact:
+            torch.testing.assert_close(st_k, st_p, atol=0, rtol=0,
+                                       equal_nan=True)
+        else:
+            torch.testing.assert_close(st_k, st_p, atol=2e-4, rtol=5e-3,
+                                       equal_nan=True)
+        state = st_k
+
+
 def test_wrapper_refuses_mixed_devices(cuda):
     tcube, scube, state, grid = _inputs(cuda, False, n_rays=8, n=9)
     with pytest.raises(ValueError, match="is on"):

@@ -313,3 +313,85 @@ def test_wide_index_only_for_cubes_of_2_31_float4(n, channels, wide):
     cube holds 3.8e8), 64-bit ones above."""
     from raytracinggrff_tpu_torch.ops.trace_segment import needs_wide_index
     assert needs_wide_index(n ** 3, channels) is wide
+
+
+def _inside(r, grid):
+    """Whether each column of r (3, n) lies in the cube, as the kernel's
+    locate decides it (NaN is outside)."""
+    lo = torch.tensor(grid.origin, dtype=torch.float32)[:, None]
+    inv = torch.tensor(grid.inv_steps, dtype=torch.float32)[:, None]
+    top = torch.tensor(grid.shape, dtype=torch.float32)[:, None] - 1
+    f = (r - lo) * inv
+    return ((f >= 0) & (f <= top)).all(dim=0)
+
+
+@pytest.mark.parametrize("channels", [4, 8])
+@pytest.mark.parametrize("crosssections", [True, False])
+@pytest.mark.parametrize("s_mode", ["cumulative", "per_step"])
+@pytest.mark.parametrize("kind", ["outside", "nan_position", "nan_k",
+                                  "negative_zero", "leaving"])
+def test_frozen_ray_step_is_a_fixed_point(kind, s_mode, crosssections,
+                                          channels):
+    """The premise of the trace kernel's exit: once a ray is outside the
+    cube or its k has a non-finite component, within two steps a step of
+    the plain version returns (r, k) bit for bit, with a ratio of +0 or
+    NaN (the per-step S; the cumulative S is then +0 or NaN too), and it
+    keeps doing so for every step that follows."""
+    grid, wpe, ne, te, b, bvec = _scene(n=33)
+    g = _port_grid(grid)
+    tcube, scube = prepare_trace_inputs(
+        *_t(wpe, ne, te, b), g, _t(*bvec) if channels == 8 else None)
+    n_steps = 6
+    if kind == "leaving":      # heading +x, out at staggered steps 1-48
+        n, n_steps = 64, 52
+        start = np.column_stack([np.linspace(1.90, 1.999, n),
+                                 np.full(n, 0.3), np.full(n, 0.5)])
+        kdir = np.tile([[1.0, 0.0, 0.0]], (n, 1))
+    else:
+        start, kdir = _bundle(8, seed=4)
+    start, kdir = start.astype(np.float32), kdir.astype(np.float32)
+    if kind == "outside":
+        start[:, 0] = np.linspace(2.5, 50.0, 8)
+    elif kind == "nan_position":
+        start[::2, 0] = np.nan
+        start[1::2] = np.nan
+    elif kind == "negative_zero":    # x = -0.0, z outside the cube
+        start[:, 0] = -0.0
+        start[:, 2] = np.linspace(2.1, 9.0, 8)
+    k0 = tracer.init_k_vectors(tcube.reshape(-1, 4), g, FREQ,
+                               *_t(start, kdir))
+    if kind == "nan_k":              # inside the cube, k not finite
+        k0[:, 0] = np.nan
+        k0[4:, 1] = np.inf
+        k0[6:, 2] = -0.0
+    state = torch.cat([torch.as_tensor(start).T, k0.T,
+                       torch.ones(1, start.shape[0])]).contiguous()
+    states, ratios = [state], []
+    for _ in range(n_steps):
+        state, rec = trace_segment_plain(tcube, scube, state, g, 5e-3, 1, 1,
+                                         1, 2.0, crosssections, s_mode)
+        states.append(state)
+        ratios.append(rec[0, 3])
+    if kind == "negative_zero":      # the first step turns -0 into +0
+        assert torch.signbit(states[0][0]).all()
+        assert not torch.signbit(states[1][0]).any()
+    bits = torch.stack(states).view(torch.int32)           # (n+1, 7, rays)
+    ratios = torch.stack(ratios)
+    gone = torch.stack([~_inside(s[0:3], g)
+                        | ~torch.isfinite(s[3:6]).all(dim=0)
+                        for s in states])
+    assert gone.any(dim=0).all()
+    for ray in range(bits.shape[2]):
+        t = int(torch.nonzero(gone[:, ray])[0])
+        assert t + 2 <= n_steps, (ray, t)
+        # steps t + 2, t + 3, ... map states[j] to states[j + 1] for j > t
+        for j in range(t + 1, n_steps):
+            assert torch.equal(bits[j + 1, :, ray], bits[j, :, ray]), (ray, j)
+            s = ratios[j, ray]
+            if crosssections:
+                assert s.view(torch.int32) == 0 or torch.isnan(s), (ray, j)
+            else:
+                assert s == 1.0
+    if kind == "leaving":
+        left = [int(torch.nonzero(gone[:, r])[0]) for r in range(64)]
+        assert min(left) <= 2 and max(left) >= 40
