@@ -13,16 +13,15 @@ the map; then drives the straight-LOS chain, the gyroresonance map, the
 low-band LOS vs ray-tracing comparison, per-step cross-sections, three
 maps of the TbSpectra sweep, the other device CLIs at the defaults of
 their CLIs, the production map over multi-device meshes (spawned and from torchrun), a
-map against the float64 transfer reference, the FMA build against the
-shipped exact build over whole traces and maps, the benchmark harness,
+map against the float64 transfer reference, the kernel against the plain
+version at the end of a whole trace, the benchmark harness,
 a MAS time series stepped through MASModel.at_time, the transfer folds
 against their plain versions, alone and inside whole maps, the
 resample, sampler and scan kernels against theirs, and the record fold's
 counts against a plain count.
 Phases:
-  1. versions, card, kernel build: the shipped library (-fmad=false) and
-     the FMA build (FMA_NVCC_FLAGS, for phase 14), one nvcc each, started
-     together
+  1. versions, card, kernel build: the one library (NVCC_FLAGS,
+     -fmad=false) in one nvcc call, with ptxas's registers and spills
   2. kernel vs plain on a non-reflecting scene, every ray within tolerance
   3. kernel vs plain on the canonical scene's first segment (>= 99% of
      rays within tolerance), with both times and the kernel's bound; then
@@ -63,16 +62,9 @@ Phases:
      with gloo on the card
  13. phase 5's map through the kernel against the float64 reference
      (grff/reference.py) on the same records: lit on-disk T_b within 1%
- 14. the FMA build (FMA_NVCC_FLAGS) vs the shipped, exact build: (a) the
-     canonical trace (256^2 x 5000 steps x 128^3, 8 segments) in
-     lockstep, every record under ROW_TOL (printed per segment, with the
-     rays that part; asserted: no value NaN in one build only), and the
-     first segment's time through each; (b) the shipped build's last
-     segment against the plain version from the same state, rows 0-6 bit
-     for bit; (c) the production map and sweep index 29 (800 MHz, 576^3)
-     through both, against DV_BAR_FIXED and rel T_b 5e-3 over lit on-disk
-     values, with the worst pixels; where the FMA build misses a bar, the
-     shipped flags must hold -fmad=false
+ 14. the canonical trace (256^2 x 5000 steps x 128^3, 8 segments)
+     through the kernel, and its last segment against the plain version
+     from the same state: record rows 0-6 bit for bit
  15. the benchmark harness (bench_torch.py) at the canonical size, trace
      and pipeline mode, --repeat 3: its two JSON lines, 32 launches each
  16. a MAS time series: one directory with two timesteps (the second
@@ -340,19 +332,6 @@ def canonical_scene(n_pix=256):
 
 
 @contextlib.contextmanager
-def kernel_library(lib):
-    """Make every kernel wrapper launch from `lib` (a library of
-    ops/_build.load_library) while the block runs."""
-    from raytracinggrff_tpu_torch.ops import _build
-    saved = _build.library
-    _build.library = lambda: lib
-    try:
-        yield
-    finally:
-        _build.library = saved
-
-
-@contextlib.contextmanager
 def plain_segments():
     """Route the segment driver through the plain version on CUDA tensors
     for a comparison run; the wrapper itself never does."""
@@ -453,40 +432,21 @@ def hold_segment(tag, what, args, min_share):
     return rec_k, worst
 
 
-def build_all(flag_sets):
-    """Build every {name: nvcc flags} library at once (one nvcc each) and
-    load them; prints each build's ptxas registers and spills."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from raytracinggrff_tpu_torch.ops import _build
-    with ThreadPoolExecutor(len(flag_sets)) as pool:
-        built = dict(zip(flag_sets, pool.map(_build.build_library,
-                                             flag_sets.values())))
-    libs = {}
-    for name, (path, log) in built.items():
-        libs[name] = _build.load_library(path)
-        for line in log.splitlines():
-            if "Compiling" in line or "spill" in line or "registers" in line:
-                say(f"[build] {name} ptxas: {line.strip()}")
-    return libs
-
-
 def phase_build():
-    """Build the shipped library (NVCC_FLAGS) and the FMA build
-    (FMA_NVCC_FLAGS, measured in phase 14) at once; returns the FMA
-    library."""
+    """Build the kernel library (NVCC_FLAGS) and print ptxas's registers
+    and spills for each kernel."""
     from raytracinggrff_tpu_torch.ops import _build
     say(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
     say(f"nvidia-smi: {smi_line()}")
     t0 = time.perf_counter()
-    libs = build_all({"shipped": _build.NVCC_FLAGS,
-                      "fma": _build.FMA_NVCC_FLAGS})
+    _, log = _build.build_library()
+    for line in log.splitlines():
+        if "Compiling" in line or "spill" in line or "registers" in line:
+            say(f"[build] ptxas: {line.strip()}")
     _build.library()
-    say(f"[1] built the shipped and the FMA library in "
-        f"{time.perf_counter() - t0:.1f} s, one nvcc each at once (nvcc "
-        f"{' '.join(_build.NVCC_FLAGS)}; the FMA build drops -fmad=false)")
-    return libs["fma"]
+    say(f"[1] built the kernel library in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
 
 
 def small_segment_args():
@@ -745,25 +705,6 @@ def hold_maps(tag, what, ref, test, bar, disk=None):
     return out
 
 
-def worst_pixels(tag, ref, test, n=3):
-    """Print the n pixels of largest rel T_b difference between two maps:
-    (row, column, frequency), both T_b and V/I, and the mean T_b of each
-    map's four neighbours of the pixel."""
-    a, b = ref["emission_cube"], test["emission_cube"]
-    rel = np.abs(b - a) / np.maximum(np.abs(a), 1e-30)
-    for flat in np.argsort(rel, axis=None)[::-1][:n]:
-        i, j, f = np.unravel_index(flat, a.shape)
-        near = [(i + di, j + dj) for di, dj in ((-1, 0), (1, 0), (0, -1),
-                                                (0, 1))
-                if 0 <= i + di < a.shape[0] and 0 <= j + dj < a.shape[1]]
-        say(f"[{tag}] pixel ({i}, {j}, {f}): T_b {b[i, j, f]:.6g} vs "
-            f"{a[i, j, f]:.6g} K (rel {rel[i, j, f]:.3g}), V/I "
-            f"{test['emission_polVI_cube'][i, j, f]:.4g} vs "
-            f"{ref['emission_polVI_cube'][i, j, f]:.4g}; neighbours' mean "
-            f"T_b {np.mean([b[p][f] for p in near]):.6g} vs "
-            f"{np.mean([a[p][f] for p in near]):.6g} K")
-
-
 def phase_map():
     from raytracinggrff_tpu_torch.grids import UniformGrid
     from raytracinggrff_tpu_torch.mas.model import (MASModel,
@@ -929,18 +870,16 @@ def phase_compare(tmp, n_pix=128, grid_n=256, freqs=(30e6, 60e6, 120e6),
 SWEEP_INDICES = (0, 16, 29)
 
 
-def phase_sweep(tmp, indices=SWEEP_INDICES, compare=SWEEP_INDICES,
-                n_pix=128, device="cuda"):
+def phase_sweep(tmp, indices=SWEEP_INDICES, n_pix=128, device="cuda"):
     """The TbSpectra sweep's maps at `indices` of its 30 default
     frequencies, through one run_sweep at the CLI defaults (phi0 -140,
     lattice presets), so that maps that share a cube set reuse it as the
     CLI does. Per map: its preset, stage times and peak device memory,
     every T_b finite, the on-disk median in 1e4..3e6 K and the share of
     on-disk values outside that range; over the run, kernel launches =
-    segments. Then each map at `compare` has its first segment (the
-    sweep's own rays, state, stride and records per segment, on its cube
-    set made anew) held kernel vs plain as phase 3 holds the canonical
-    one. Returns (the per-map timings dicts, the run's wall seconds)."""
+    segments. Then each map has its first segment (the sweep's own rays,
+    state, stride and records per segment, on its cube set made anew)
+    held kernel vs plain as phase 3 holds the canonical one."""
     from raytracinggrff_tpu_torch.cli.tb_spectra import (run_sweep,
                                                          sweep_frequencies)
     from raytracinggrff_tpu_torch.mas.model import (MASModel,
@@ -991,10 +930,7 @@ def phase_sweep(tmp, indices=SWEEP_INDICES, compare=SWEEP_INDICES,
             say(f"[10] index {i}: flat pixel indices (i * {n_pix} + j) of "
                 f"the on-disk values outside 1e4..3e6 K: {flat.tolist()}")
         assert 1e4 < med < 3e6, med
-        t.update(index=i, median=med, off_range=off)
     for i, first in zip(indices, firsts):
-        if i not in compare:
-            continue
         grid = first[3]
         cubes = prepare_cubes(MASModel(model), grid, -140.0, verbose=False,
                               device=device)
@@ -1004,7 +940,6 @@ def phase_sweep(tmp, indices=SWEEP_INDICES, compare=SWEEP_INDICES,
         hold_segment("10", f"index {i}: first segment", (tcube, scube,
                                                          *first[2:]), 0.99)
         del tcube, scube
-    return timings, wall
 
 
 def phase_cli(tmp, device="cuda"):
@@ -1319,15 +1254,10 @@ def phase_float64(tmp, device="cuda"):
     return {"max_rel": float(rel.max()), "lit": int(lit.sum())}
 
 
-def fma_trace(libs, n_pix=256, n_steps=5000):
-    """Phase 14 (a) and (b): the canonical trace (n_pix^2 x n_steps x 128^3
-    at 75 MHz) through the FMA build and the shipped build (`libs`, by
-    those names) in lockstep, every record compared segment by segment
-    under ROW_TOL, with the first rays to part and where; the first
-    segment timed through each in turns (FMA, shipped, shipped, FMA); then
-    the shipped build's last segment against the plain version from the
-    same state, record rows 0-6 bit for bit. The one assertion of (a) is
-    that no record value is NaN in one build and finite in the other."""
+def phase_exact(n_pix=256, n_steps=5000):
+    """Phase 14: the canonical trace (n_pix^2 x n_steps x 128^3 at 75 MHz)
+    through the kernel segment by segment, then its last segment against
+    the plain version from the same state, record rows 0-6 bit for bit."""
     from raytracinggrff_tpu_torch.ops.trace_segment import (
         trace_segment, trace_segment_plain)
     from raytracinggrff_tpu_torch.tracer_segments import (initial_state,
@@ -1336,133 +1266,22 @@ def fma_trace(libs, n_pix=256, n_steps=5000):
     grid, f, start, kdir = canonical_scene(n_pix)
     tcube, scube = prepare_trace_inputs(f["wpe"], f["ne"], f["te"], f["b"],
                                         grid)
-    state_f = state_s = initial_state(tcube, grid, 75e6, start, kdir)
-    first = (tcube, scube, state_s, grid, 6e-3, 1, 10, 64)
-    ms = {"fma": [], "shipped": []}
-    for name in ("fma", "shipped", "shipped", "fma"):
-        with kernel_library(libs[name]):
-            ms[name].append(cuda_ms(lambda: trace_segment(*first), reps=5))
-    say(f"[14] (a) first segment ({n_pix ** 2} rays x 631 steps) in turns: "
-        f"FMA build {['%.4f' % t for t in ms['fma']]} ms, shipped "
-        f"{['%.4f' % t for t in ms['shipped']]} ms")
+    state = initial_state(tcube, grid, 75e6, start, kdir)
     plan, _ = segment_plan(n_steps, 10, 64)
-    n_rays = state_s.shape[1]
-    every = torch.ones(n_rays, dtype=torch.bool, device=state_s.device)
-    parted_at = torch.full((n_rays,), -1, device=state_s.device)
-    parted, nan_parted, shares, rec0 = [], 0, [], 0
-    for i, (n_first, rps) in enumerate(plan):
-        before = state_s
-        state_s, rec_s = trace_segment(tcube, scube, state_s, grid, 6e-3,
-                                       n_first, 10, rps)
-        with kernel_library(libs["fma"]):
-            state_f, rec_f = trace_segment(tcube, scube, state_f, grid,
-                                           6e-3, n_first, 10, rps)
-        ok, worst = record_agreement(rec_f, rec_s)
-        every &= ok.all(dim=0)
-        nan_parted += int((torch.isnan(rec_f) != torch.isnan(rec_s)).sum())
-        new = (parted_at < 0) & ~ok.all(dim=0)
-        bad_at = (~ok).int().argmax(dim=0)
-        parted_at = torch.where(new, rec0 + bad_at, parted_at)
-        for ray in torch.nonzero(new)[:6 - len(parted), 0].tolist():
-            r = int(bad_at[ray])
-            parted.append((ray, rec0 + r, rec_f[r, :7, ray].tolist(),
-                           rec_s[r, :7, ray].tolist()))
-        rec0 += rps
-        shares.append(float(ok[-1].double().mean()))
-        say(f"[14] (a) segment {i} ({n_first} + {rps - 1} x 10 steps): FMA "
-            f"vs shipped, {shares[-1]:.5f} of rays within tolerance at its "
-            f"last record, {float(every.double().mean()):.5f} at every "
-            f"record so far; max |diff| per row "
-            f"{['%.3g' % w for w in worst]}")
-    dr = (rec_f[-1, 0:3] - rec_s[-1, 0:3]).double().norm(dim=0)
-    dr = dr[torch.isfinite(dr)].cpu().numpy()
-    p50, p99 = np.percentile(dr, [50, 99])
-    at = parted_at[parted_at >= 0].cpu().numpy()
-    where = np.percentile(at, [0, 50, 100]).tolist() if at.size else []
-    say(f"[14] (a) whole trace: {float(every.double().mean()):.5f} of "
-        f"{n_rays} rays within tolerance at every record; {at.size} parted, "
-        f"at records {where} (min, median, max); |dr| at the final record "
-        f"over {dr.size} rays "
-        f"with a finite position: p50 {p50:.4g}, p99 {p99:.4g}, max "
-        f"{dr.max():.4g} R_sun; record values NaN in one build only: "
-        f"{nan_parted}")
-    for ray, rec, a, b in parted:
-        say(f"[14] (a) ray {ray} (pixel {ray // n_pix}, {ray % n_pix}) parts "
-            f"at record {rec} (step {1 + 10 * rec}): rows x, y, z, S, ne, "
-            f"te, b {['%.7g' % v for v in a]} (FMA) vs "
-            f"{['%.7g' % v for v in b]} (shipped)")
-    assert nan_parted == 0, nan_parted
-
+    for n_first, rps in plan:
+        before = state
+        state, rec = trace_segment(tcube, scube, state, grid, 6e-3, n_first,
+                                   10, rps)
     n_first, rps = plan[-1]
     _, rec_p = trace_segment_plain(tcube, scube, before, grid, 6e-3, n_first,
                                    10, rps)
-    a, b = rec_s[:, :7], rec_p[:, :7]
+    a, b = rec[:, :7], rec_p[:, :7]
     same = (a == b) | (torch.isnan(a) & torch.isnan(b))
-    say(f"[14] (b) last segment ({n_first} + {rps - 1} x 10 steps from the "
-        f"shipped build's state): shipped build vs plain, rows 0-6 "
+    say(f"[14] last segment of {len(plan)} ({n_first} + {rps - 1} x 10 "
+        f"steps from the kernel's state): kernel vs plain, rows 0-6 "
         f"{int(same.sum())} of {same.numel()} values bit for bit; rows "
         f"unequal {sorted(set(torch.nonzero(~same)[:, 1].tolist()))}")
-    assert same.all(), "the shipped build parted from the plain version"
-    return {"ms": ms, "last_record_shares": shares,
-            "every_record_share": float(every.double().mean()),
-            "parted": int(at.size), "dr": (float(p50), float(p99),
-                                           float(dr.max()))}
-
-
-def phase_fma(tmp, fma_lib):
-    """Phase 14: the FMA build (FMA_NVCC_FLAGS) against the shipped build
-    (NVCC_FLAGS, -fmad=false) over whole traces: fma_trace, then (c) the
-    production map (phase 4's model and SLICE) and the sweep map at index
-    29 (800 MHz, 576^3, 3,000 records) through both builds, against
-    DV_BAR_FIXED in |dV/I| and 5e-3 in relative T_b over lit on-disk
-    values, with the worst pixels. Where the FMA build misses a bar, the
-    shipped build must be the exact one."""
-    from raytracinggrff_tpu_torch.cli.tb_spectra import (run_sweep,
-                                                         sweep_frequencies)
-    from raytracinggrff_tpu_torch.grids import UniformGrid
-    from raytracinggrff_tpu_torch.mas.model import (MASModel,
-                                                    synthetic_mas_model)
-    from raytracinggrff_tpu_torch.ops import _build
-    from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
-                                                   prepare_cubes,
-                                                   run_ray_tracing_emission)
-    libs = {"fma": fma_lib, "shipped": _build.library()}
-    out = fma_trace(libs)
-    model = synthetic_mas_model(Path(tmp) / "corona_fma", timestep=2)
-    cubes = prepare_cubes(MASModel(model), UniformGrid.cube(3.0, 128), 0.0,
-                          verbose=False, device="cuda")
-    maps = {}
-    for name, lib in libs.items():
-        with kernel_library(lib):
-            maps[name] = run_ray_tracing_emission(
-                cubes=cubes, config=RayEmissionConfig(**SLICE),
-                verbose=False, device="cuda")
-    del cubes
-    out["production"] = map_diff(
-        "14", "(c) production map 256^2 x 5000 x 128^3, FMA vs shipped",
-        maps["shipped"], maps["fma"], DV_BAR_FIXED, disk_mask(256, 1.44))
-    worst_pixels("14", maps["shipped"], maps["fma"])
-    sweep_model = synthetic_mas_model(Path(tmp) / "corona_fma_sweep")
-    freqs = sweep_frequencies()[[29]]
-    for name, lib in libs.items():
-        timings = []
-        with kernel_library(lib):
-            rows = run_sweep(sweep_model, freqs, Path(tmp) / f"fma_{name}",
-                             n_pix=128, phi0_offset=-140.0, device="cuda",
-                             timings=timings, verbose=False)
-        maps[name] = dict(np.load(rows[0]["npz"]))
-    t = timings[0]
-    out["sweep29"] = map_diff(
-        "14", f"(c) sweep index 29 ({t['freq_hz'] / 1e6:.1f} MHz, "
-        f"{t['grid_n']}^3, {t['records']} records), FMA vs shipped",
-        maps["shipped"], maps["fma"], DV_BAR_FIXED,
-        disk_mask(128, t["x_fov"]))
-    worst_pixels("14", maps["shipped"], maps["fma"])
-    held = out["production"]["held"] and out["sweep29"]["held"]
-    say(f"[14] (c) the FMA build {'holds' if held else 'misses'} the map "
-        f"bars; shipped nvcc flags end in {_build.NVCC_FLAGS[-1]}")
-    assert held or "-fmad=false" in _build.NVCC_FLAGS
-    return out
+    assert same.all(), "the kernel parted from the plain version"
 
 
 def phase_harness():
@@ -2376,7 +2195,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     out = {}
     t_all = time.perf_counter()
-    fma_lib = phase_build()
+    phase_build()
     with torch.inference_mode():
         phase_small(out)
         phase_canonical(out)
@@ -2396,7 +2215,7 @@ def main():
             scan_launches = phase_cli(tmp)
             phase_mesh(tmp, one)
             phase_float64(tmp)
-            phase_fma(tmp, fma_lib)
+        phase_exact()
         phase_harness()
         with tempfile.TemporaryDirectory() as tmp:
             phase_series(tmp)

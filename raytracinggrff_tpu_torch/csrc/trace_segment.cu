@@ -65,12 +65,6 @@
 // canonical segment's time. What bounds the kernel then: the arithmetic
 // of live rays, and warps held by their last live lane (a warp's lanes
 // are 32 neighbouring pixels, which leave at close steps).
-//
-// Compile-time switches, for measurement only (profile_slice.py phase
-// cache passes them; the shipped build sets neither):
-//   RGRFF_CACHE_OFF        every evaluation misses: the uncached design.
-//   RGRFF_COUNT_CACHE      count evaluations and misses per kind (central,
-//                          perturbed) into the wrapper's counter.
 
 #include <cuda_runtime.h>
 
@@ -88,17 +82,6 @@ struct TraceParams {  // mirrored by ops/_build.py::_TraceParams
 namespace {
 
 constexpr int kThreads = 128;
-#ifdef RGRFF_CACHE_OFF
-constexpr bool kCacheOff = true;
-#else
-constexpr bool kCacheOff = false;
-#endif
-#ifdef RGRFF_COUNT_CACHE
-constexpr int kCounters = 4;  // central evals, misses, perturbed evals, misses
-#else
-constexpr int kCounters = 0;
-#endif
-enum Kind { kCentral = 0, kPerturbed = 1 };
 
 struct V3 {
   float x, y, z;
@@ -213,66 +196,46 @@ __device__ __forceinline__ float4 trilerp(const float4* __restrict__ cube,
 }
 
 // A ray's cache: the flat index and the 8 corners of the trace-cube cell
-// it last loaded, in registers, and its hit counts when counted.
+// it last loaded, in registers.
 template <typename Idx>
 struct RayCache {
   Idx key;
   float4 v[8];
-  unsigned evals[2], misses[2];
 
-  __device__ __forceinline__ void init() {
-    key = Idx(-1);
-    evals[0] = evals[1] = misses[0] = misses[1] = 0;
-  }
+  __device__ __forceinline__ void init() { key = Idx(-1); }
 
-  // Trilinear trace-cube value at cell c for an evaluation of `kind`. A
-  // miss, central or perturbed, loads c's cell into the cache in the lanes
-  // that miss; every lane then runs one lerp sequence on its cached
-  // corners, so a warp whose lanes split between hit and miss does not
-  // run it twice.
-  template <Kind kind>
+  // Trilinear trace-cube value at cell c. A miss, central or perturbed,
+  // loads c's cell into the cache in the lanes that miss; every lane then
+  // runs one lerp sequence on its cached corners, so a warp whose lanes
+  // split between hit and miss does not run it twice.
   __device__ __forceinline__ float4 value(const float4* __restrict__ tcube,
                                           const TraceParams& p,
                                           const Cell<Idx>& c) {
-    if (kCounters) ++evals[kind];
-    if (kCacheOff || c.base != key) {
-      if (kCounters) ++misses[kind];
+    if (c.base != key) {
       key = c.base;
       load_corners(tcube, 1, 0, p, c.base, v);
     }
     return lerp_corners(v, c);
   }
-
-  // Add this warp's counts to counts[0..3] (one atomic per counter).
-  __device__ __forceinline__ void flush(unsigned long long* counts) const {
-    const unsigned mask = __activemask();
-    const unsigned vals[4] = {evals[0], misses[0], evals[1], misses[1]};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const unsigned sum = __reduce_add_sync(mask, vals[i]);
-      if (int(threadIdx.x % 32) == __ffs(mask) - 1)
-        atomicAdd(counts + i, static_cast<unsigned long long>(sum));
-    }
-  }
 };
 
 // [omega_pe, grad] at r: NaN outside the cube.
-template <Kind kind, typename Idx>
+template <typename Idx>
 __device__ __forceinline__ float4 field(const float4* __restrict__ tcube,
                                         const TraceParams& p,
                                         RayCache<Idx>& cache, V3 r) {
   Cell<Idx> c;
-  return locate(p, r, c) ? cache.template value<kind>(tcube, p, c)
+  return locate(p, r, c) ? cache.value(tcube, p, c)
                          : make_float4(NAN, NAN, NAN, NAN);
 }
 
 // ODE right-hand side at (r, k) (tracer.py::_rhs).
-template <Kind kind, typename Idx>
+template <typename Idx>
 __device__ __forceinline__ void rhs(const float4* __restrict__ tcube,
                                     const TraceParams& p,
                                     RayCache<Idx>& cache, V3 r, V3 k,
                                     V3& dr, V3& dk) {
-  const float4 v = field<kind>(tcube, p, cache, r);
+  const float4 v = field(tcube, p, cache, r);
   const float wpe = v.x;
   const float om2 = wpe * wpe + dot(k, k);
   // NaN om2 becomes 0 here where the reference keeps NaN: both are invalid
@@ -293,18 +256,17 @@ __device__ __forceinline__ V3 rk4_sum(float c, V3 x, V3 d1, V3 d2, V3 d3,
           x.z + c * (d1.z + 2.f * d2.z + 2.f * d3.z + d4.z)};
 }
 
-template <Kind kind, typename Idx>
+template <typename Idx>
 __device__ __forceinline__ void rk4(const float4* __restrict__ tcube,
                                     const TraceParams& p,
                                     RayCache<Idx>& cache, V3 r, V3 k,
                                     V3& r_new, V3& k_new) {
   const float h = 0.5f * p.dt;
   V3 k1r, k1k, k2r, k2k, k3r, k3k, k4r, k4k;
-  rhs<kind>(tcube, p, cache, r, k, k1r, k1k);
-  rhs<kind>(tcube, p, cache, axpy(h, k1r, r), axpy(h, k1k, k), k2r, k2k);
-  rhs<kind>(tcube, p, cache, axpy(h, k2r, r), axpy(h, k2k, k), k3r, k3k);
-  rhs<kind>(tcube, p, cache, axpy(p.dt, k3r, r), axpy(p.dt, k3k, k), k4r,
-            k4k);
+  rhs(tcube, p, cache, r, k, k1r, k1k);
+  rhs(tcube, p, cache, axpy(h, k1r, r), axpy(h, k1k, k), k2r, k2k);
+  rhs(tcube, p, cache, axpy(h, k2r, r), axpy(h, k2k, k), k3r, k3k);
+  rhs(tcube, p, cache, axpy(p.dt, k3r, r), axpy(p.dt, k3k, k), k4r, k4k);
   const float c = p.dt / 6.f;
   r_new = rk4_sum(c, r, k1r, k2r, k3r, k4r);
   k_new = rk4_sum(c, k, k1k, k2k, k3k, k4k);
@@ -332,7 +294,7 @@ __device__ __forceinline__ float step_with_crosssection(
     const float4* __restrict__ tcube, const TraceParams& p,
     RayCache<Idx>& cache, V3& r, V3& k, bool& same) {
   V3 rn, kn;
-  rk4<kCentral>(tcube, p, cache, r, k, rn, kn);
+  rk4(tcube, p, cache, r, k, rn, kn);
   same = (diff_bits(rn, r) | diff_bits(kn, k)) == 0u;
   const V3 rd = sub(rn, r);
   const float dnorm = sqrtf(dot(rd, rd)) + 1e-32f;
@@ -343,8 +305,8 @@ __device__ __forceinline__ float step_with_crosssection(
   const V3 e2 = normalized(cross(t, e1));
   const float eps = p.perturb_ratio * dnorm;
   V3 r1, r2, unused;
-  rk4<kPerturbed>(tcube, p, cache, axpy(eps, e1, r), k, r1, unused);
-  rk4<kPerturbed>(tcube, p, cache, axpy(eps, e2, r), k, r2, unused);
+  rk4(tcube, p, cache, axpy(eps, e1, r), k, r1, unused);
+  rk4(tcube, p, cache, axpy(eps, e2, r), k, r2, unused);
   const V3 cr = cross(sub(r1, rn), sub(r2, rn));
   const float num = fabsf(dot(cr, t));
   r = rn;
@@ -394,8 +356,7 @@ __global__ void __launch_bounds__(kThreads)
                          const float4* __restrict__ scube,
                          const float* __restrict__ state_in,
                          float* __restrict__ state_out,
-                         float* __restrict__ records, TraceParams p,
-                         unsigned long long* __restrict__ counts) {
+                         float* __restrict__ records, TraceParams p) {
   const int ray = blockIdx.x * kThreads + threadIdx.x;
   if (ray >= p.n_rays) return;
   const int64_t n = p.n_rays;
@@ -425,7 +386,7 @@ __global__ void __launch_bounds__(kThreads)
         frozen = frozen && (__float_as_uint(rho) == 0u || isnan(rho));
       } else {
         V3 rn, kn;
-        rk4<kCentral>(tcube, p, cache, r, k, rn, kn);
+        rk4(tcube, p, cache, r, k, rn, kn);
         frozen = (diff_bits(rn, r) | diff_bits(kn, k)) == 0u;
         r = rn;
         k = kn;
@@ -442,32 +403,29 @@ __global__ void __launch_bounds__(kThreads)
   state_out[4 * n + ray] = k.y;
   state_out[5 * n + ray] = k.z;
   state_out[6 * n + ray] = cum;
-  if (kCounters) cache.flush(counts);
 }
 
 template <bool CS, bool PS, typename Idx>
 void launch(const float4* t, const float4* s, const float* in, float* out,
-            float* rec, const TraceParams& p, unsigned long long* counts,
-            cudaStream_t stream) {
+            float* rec, const TraceParams& p, cudaStream_t stream) {
   const dim3 grid((p.n_rays + kThreads - 1) / kThreads);
   if (p.sample_channels == 8)
     trace_segment_kernel<CS, PS, 2, Idx>
-        <<<grid, kThreads, 0, stream>>>(t, s, in, out, rec, p, counts);
+        <<<grid, kThreads, 0, stream>>>(t, s, in, out, rec, p);
   else
     trace_segment_kernel<CS, PS, 1, Idx>
-        <<<grid, kThreads, 0, stream>>>(t, s, in, out, rec, p, counts);
+        <<<grid, kThreads, 0, stream>>>(t, s, in, out, rec, p);
 }
 
 template <typename Idx>
 void launch_cs(const float4* t, const float4* s, const float* in, float* out,
-               float* rec, const TraceParams& p, unsigned long long* counts,
-               cudaStream_t stream) {
+               float* rec, const TraceParams& p, cudaStream_t stream) {
   if (p.crosssections && p.per_step)
-    launch<true, true, Idx>(t, s, in, out, rec, p, counts, stream);
+    launch<true, true, Idx>(t, s, in, out, rec, p, stream);
   else if (p.crosssections)
-    launch<true, false, Idx>(t, s, in, out, rec, p, counts, stream);
+    launch<true, false, Idx>(t, s, in, out, rec, p, stream);
   else
-    launch<false, false, Idx>(t, s, in, out, rec, p, counts, stream);
+    launch<false, false, Idx>(t, s, in, out, rec, p, stream);
 }
 
 }  // namespace
@@ -477,37 +435,28 @@ void launch_cs(const float4* t, const float4* s, const float* in, float* out,
 // float32, contiguous. state_in/out: (7, n_rays); records: (rps, 8, n_rays).
 // p.wide_index selects 64-bit cube offsets, which a sample cube of 2^31
 // float4 or more needs. p.per_step (with p.crosssections) writes each
-// record's last step ratio into row 3 instead of cumS. counts:
-// rgrff_cache_counters() zeroed uint64, or null when that is 0.
+// record's last step ratio into row 3 instead of cumS.
 extern "C" int rgrff_trace_segment(const void* tcube, const void* scube,
                                    const void* state_in, void* state_out,
                                    void* records, TraceParams p,
-                                   void* counts, void* stream) {
+                                   void* stream) {
   if (p.n_rays <= 0) return 0;
   const int groups = p.sample_channels / 4;
   if (!p.wide_index &&
       int64_t(p.nx) * p.ny * p.nz * groups >= (int64_t(1) << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (kCounters && counts == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* t = static_cast<const float4*>(tcube);
   const auto* s = static_cast<const float4*>(scube);
   const auto* in = static_cast<const float*>(state_in);
   auto* out = static_cast<float*>(state_out);
   auto* rec = static_cast<float*>(records);
-  auto* cnt = static_cast<unsigned long long*>(counts);
   auto st = static_cast<cudaStream_t>(stream);
   if (p.wide_index)
-    launch_cs<int64_t>(t, s, in, out, rec, p, cnt, st);
+    launch_cs<int64_t>(t, s, in, out, rec, p, st);
   else
-    launch_cs<int>(t, s, in, out, rec, p, cnt, st);
+    launch_cs<int>(t, s, in, out, rec, p, st);
   return static_cast<int>(cudaGetLastError());
 }
-
-// Number of uint64 counters rgrff_trace_segment fills: 4 in a build with
-// RGRFF_COUNT_CACHE (central evaluations, central misses, perturbed
-// evaluations, perturbed misses), else 0.
-extern "C" int rgrff_cache_counters() { return kCounters; }
 
 extern "C" const char* rgrff_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

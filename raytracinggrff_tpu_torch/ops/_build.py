@@ -29,19 +29,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-# The shipped build keeps nvcc from contracting a*b+c into FMAs
-# (-fmad=false), so it rounds as the plain version's separate torch ops do:
-# its records equal theirs bit for bit, over whole traces too (chip_smoke.py
-# phase 14 (b)), and the CUDA tests hold it to that. FMA_NVCC_FLAGS lets
-# nvcc contract, which takes the canonical segment from 4.95-5.00 to
-# 4.18-4.21 ms on an H100 80GB HBM3 at 700 W (profile_slice.py phase cache,
-# PERF.md); but over a whole trace some of its rays part from the plain
-# version's, and the 256^2 production map then moves outside the map bars
-# (phase 14 (c)), so that build serves only for measurement.
-FMA_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-                  "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-                  "-Xptxas", "-v")
-NVCC_FLAGS = FMA_NVCC_FLAGS + ("-fmad=false",)
+# -fmad=false keeps nvcc from contracting a*b+c into FMAs, so the build
+# rounds as the plain version's separate torch ops do. Contraction was
+# faster, but some rays of a whole trace then parted from the plain
+# version's and the production map moved outside its bars (PERF.md).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v", "-fmad=false")
 
 
 class _TraceParams(ctypes.Structure):
@@ -123,12 +117,12 @@ def _nvcc():
     return found
 
 
-def build_library(flags=NVCC_FLAGS):
-    """Compile csrc/*.cu with nvcc `flags` into _build/ unless a library of
+def build_library():
+    """Compile csrc/*.cu with NVCC_FLAGS into _build/ unless a library of
     the same sources and flags is there already. Returns (path, ptxas
     log)."""
     sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(flags).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -139,7 +133,7 @@ def build_library(flags=NVCC_FLAGS):
     if not lib.exists():
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *flags, "-o", tmp, *map(str, sources)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)
@@ -160,11 +154,9 @@ def load_library(path):
     """Load a library built by build_library and declare its C entries."""
     lib = ctypes.CDLL(str(path))
     ptr = ctypes.c_void_p
-    lib.rgrff_trace_segment.argtypes = [ptr, ptr, ptr, ptr, ptr,
-                                        _TraceParams, ptr, ptr]
+    # tcube, scube, state_in, state_out, records, params, stream
+    lib.rgrff_trace_segment.argtypes = [ptr] * 5 + [_TraceParams, ptr]
     lib.rgrff_trace_segment.restype = ctypes.c_int
-    lib.rgrff_cache_counters.argtypes = []
-    lib.rgrff_cache_counters.restype = ctypes.c_int
     # recs, freqs, tables, carry_in (4), prev_in, carry_out, prev_out,
     # params, stream
     lib.rgrff_fold_records.argtypes = [ptr] * 10 + [

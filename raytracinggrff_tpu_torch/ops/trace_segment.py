@@ -108,30 +108,19 @@ def trace_segment(tcube, scube, state, grid: UniformGrid, dt, n_first,
         n_first, stride, rps, int(bool(crosssections)), channels,
         int(needs_wide_index(grid.nx * grid.ny * grid.nz, channels)),
         int(s_mode == "per_step"))
-    n_counts = lib.rgrff_cache_counters()
-    counts = (torch.zeros(n_counts, dtype=torch.int64, device=state.device)
-              if n_counts else None)
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rgrff_trace_segment(
             tcube.data_ptr(), scube.data_ptr(), state.data_ptr(),
-            state_out.data_ptr(), records.data_ptr(), params,
-            None if counts is None else counts.data_ptr(), stream)
+            state_out.data_ptr(), records.data_ptr(), params, stream)
     if err != 0:
         raise RuntimeError("trace-segment kernel launch failed: "
                            + lib.rgrff_error_string(err).decode())
     trace_segment.launches += 1
-    if counts is not None:
-        prev = trace_segment.cache_counts
-        trace_segment.cache_counts = counts if prev is None else prev + counts
     return state_out, records
 
 
 trace_segment.launches = 0
-# [central evaluations, central misses, perturbed evaluations, perturbed
-# misses] summed over launches, kept only by a library built with
-# -DRGRFF_COUNT_CACHE (profile_slice.py); None otherwise
-trace_segment.cache_counts = None
 
 
 def trace_segment_plain(tcube, scube, state, grid: UniformGrid, dt, n_first,

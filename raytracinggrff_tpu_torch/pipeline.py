@@ -240,10 +240,8 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
     records are also counted as the record fold takes them ("fold_counts":
     [stepped from, taken] a segment, ops/transfer_fold.fold_counts, a
     launch of its own before the fold in a device span of its own,
-    "count", outside "transfer"), and the rays frozen at each segment's
-    launch ("trace_frozen": [k not finite, rays] a segment,
-    tracer_segments.run_segments, inside "trace"), on the device, read
-    after the stages' synchronize; untraced maps count nothing.
+    "count", outside "transfer"), on the device, read after the stages'
+    synchronize; untraced maps count nothing.
 
     With `mesh` (a parallel.mesh.RayMesh, one per rank) the map runs on
     mesh.device, which a conflicting `device` may not contradict: each
@@ -305,17 +303,16 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
         pixel_area_cm2 = pixel_size_cm * pixel_size_cm
 
         stats = {} if mesh is not None else None
-        fold_counts = trace_frozen = None
+        fold_counts = None
         if rec is not None and torch.autograd._profiler_enabled():
             plan, _ = segment_plan(cfg.n_steps, cfg.record_stride,
                                    cfg.seg_records)
             fold_counts = torch.zeros((len(plan), 2), dtype=torch.int64,
                                       device=device)
-            trace_frozen = torch.zeros_like(fold_counts)
         flux_o, flux_x, n_segments, center_los = _streamed_trace_transfer(
             cubes, grid, cfg, start, kdir, frequencies_hz, pixel_area_cm2,
             device, collect_center=save_plots, mesh=mesh, stats=stats,
-            fold_counts=fold_counts, trace_frozen=trace_frozen)
+            fold_counts=fold_counts)
 
         with profiling.span("finish", "device"):
             freqs = torch.as_tensor(frequencies_hz, dtype=torch.float32,
@@ -366,7 +363,6 @@ def run_ray_tracing_emission(model_path=None, config: RayEmissionConfig = None,
                            **(stats or {}))
             if fold_counts is not None:
                 timings["fold_counts"] = fold_counts.tolist()
-                timings["trace_frozen"] = trace_frozen.tolist()
     return result
 
 
@@ -386,8 +382,7 @@ def _center_los(rows, start, with_cos):
 
 def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
                              pixel_area_cm2, device, collect_center=False,
-                             mesh=None, stats=None, fold_counts=None,
-                             trace_frozen=None):
+                             mesh=None, stats=None, fold_counts=None):
     """Stream trace segments into the transfer carry on the device: one
     ops/transfer_fold.fold_records call a segment (the JAX package's
     stream_seg, pipeline.py:377-396). Per record: a record is valid
@@ -410,9 +405,7 @@ def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
     trace's shard statistics (iter_trace_segments).
 
     `fold_counts`, an (n_segments, 2) int64 tensor on `device`, receives
-    in row k what segment k's fold did (transfer_fold.fold_counts), and
-    `trace_frozen`, one of the same shape, the rays frozen at segment k's
-    launch (tracer_segments.run_segments)."""
+    in row k what segment k's fold did (transfer_fold.fold_counts)."""
     n_rays, nf = start.shape[0], len(frequencies_hz)
     p_center = inspection_pixel_index(cfg.n_pix)
     local_start, local_freqs, p_local = start, frequencies_hz, p_center
@@ -435,7 +428,7 @@ def _streamed_trace_transfer(cubes, grid, cfg, start, kdir, frequencies_hz,
         trace_crosssections=True, perturb_ratio=cfg.perturb_ratio,
         seg_records=cfg.seg_records,
         bvec=cubes.get("bvec") if theta_los else None, s_mode=cfg.s_mode,
-        mesh=mesh, stats=stats, frozen_counts=trace_frozen)
+        mesh=mesh, stats=stats)
     while True:
         with profiling.span("trace", "device"):
             recs = next(segments, None)

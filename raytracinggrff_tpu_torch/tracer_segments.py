@@ -85,24 +85,12 @@ def initial_state(tcube, grid: UniformGrid, freq_hz, start, kdir):
 
 def run_segments(tcube, scube, state, grid: UniformGrid, dt, n_steps,
                  record_stride=10, trace_crosssections=True,
-                 perturb_ratio=2.0, seg_records=64, s_mode="cumulative",
-                 frozen_counts=None):
+                 perturb_ratio=2.0, seg_records=64, s_mode="cumulative"):
     """Launch trace_segment once per segment of segment_plan on prepared
     kernel inputs (prepare_trace_inputs, initial_state) and yield each
-    segment's (rps, 8, n_rays) record block.
-
-    `frozen_counts`, an (n_segments, 2) int64 tensor on the state's
-    device, receives in row i, before segment i's launch, the rays whose k
-    has a non-finite component and the rays: a ray with such a k no longer
-    moves, so its lane stops within the launch's first two steps
-    (csrc/trace_segment.cu)."""
+    segment's (rps, 8, n_rays) record block."""
     plan, _ = segment_plan(n_steps, record_stride, seg_records)
-    if frozen_counts is not None:
-        frozen_counts[:, 1] = state.shape[1]
-    for i, (n_first, rps) in enumerate(plan):
-        if frozen_counts is not None:
-            frozen_counts[i, 0] = (~torch.isfinite(state[3:6])).any(
-                dim=0).sum()
+    for n_first, rps in plan:
         state, records = trace_segment(
             tcube, scube, state, grid, dt, n_first, record_stride, rps,
             perturb_ratio, trace_crosssections, s_mode)
@@ -113,8 +101,7 @@ def iter_trace_segments(omega_pe_cube, ne_cube, te_cube, b_cube,
                         grid: UniformGrid, freq_hz, start, kdir, dt, n_steps,
                         record_stride=10, trace_crosssections=True,
                         perturb_ratio=2.0, seg_records=64, bvec=None,
-                        s_mode="cumulative", mesh=None, stats=None,
-                        frozen_counts=None):
+                        s_mode="cumulative", mesh=None, stats=None):
     """Yield (rps, 8, n_rays) record blocks, one per segment, on the
     device of `omega_pe_cube`. start, kdir: (n_rays, 3) arrays or
     tensors. `bvec` (image-frame Cartesian B cubes) makes row 7 the signed
@@ -131,7 +118,6 @@ def iter_trace_segments(omega_pe_cube, ne_cube, te_cube, b_cube,
     a finite position (summed on the device, read once at the end and
     all-gathered), and 'straggler_factor', their max over their mean. So
     every rank of the group must run the generator to its end.
-    `frozen_counts` (run_segments) counts this rank's rays.
 
     Span (utils/profiling): "trace_inputs", the kernel cubes and the start
     state, on the device clock."""
@@ -143,8 +129,7 @@ def iter_trace_segments(omega_pe_cube, ne_cube, te_cube, b_cube,
         state = initial_state(tcube, grid, freq_hz, start, kdir)
     segments = run_segments(tcube, scube, state, grid, dt, n_steps,
                             record_stride, trace_crosssections,
-                            perturb_ratio, seg_records, s_mode,
-                            frozen_counts=frozen_counts)
+                            perturb_ratio, seg_records, s_mode)
     if mesh is None or stats is None:
         yield from segments
         return

@@ -23,9 +23,8 @@ from raytracinggrff_tpu_torch.tracer_segments import prepare_trace_inputs
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
-# tolerances of tests/test_pallas_trace.py:52-65 per record row
-ROW_TOL = [(2e-4, 2e-4)] * 3 + [(5e-4, 5e-3), (1e-2, 1e-3), (1.0, 1e-3),
-                                (1e-3, 1e-3), (1e-4, 0.0)]
+# tolerance of tests/test_pallas_trace.py:52-65 for cos theta (row 7)
+COS_ATOL = 1e-4
 
 
 @pytest.fixture
@@ -33,21 +32,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
-
-
-@pytest.fixture(params=["shipped", "fma"])
-def exact(request, cuda, monkeypatch):
-    """Whether the test runs the shipped build (NVCC_FLAGS, -fmad=false),
-    which is exact, rather than the FMA build kept for measurement
-    (FMA_NVCC_FLAGS). Without contraction the kernel rounds as the plain
-    version's separate torch ops do, so its records rows 0-6 equal theirs
-    (cos theta is computed in another order); the FMA build's are held to
-    ROW_TOL."""
-    if request.param == "fma":
-        lib = _build.load_library(
-            _build.build_library(_build.FMA_NVCC_FLAGS)[0])
-        monkeypatch.setattr(_build, "library", lambda: lib)
-    return request.param == "shipped"
 
 
 def _cubes(device, bvec, n):
@@ -96,21 +80,22 @@ def _inputs(device, bvec, n_rays=512, n=33):
     return tcube, scube, _state(tcube, grid, start, kdir), grid
 
 
-def _assert_records_match(rec_k, rec_p, exact):
-    for row, (atol, rtol) in enumerate(ROW_TOL):
-        if exact and row < 7:
-            atol = rtol = 0.0
-        torch.testing.assert_close(rec_k[:, row], rec_p[:, row], atol=atol,
-                                   rtol=rtol, equal_nan=True)
+def _assert_records_match(rec_k, rec_p):
+    """Rows 0-6 bit for bit, NaN where the plain version has NaN: built
+    with -fmad=false the kernel rounds as its separate torch ops do. Row 7,
+    cos theta, is computed in another order."""
+    torch.testing.assert_close(rec_k[:, :7], rec_p[:, :7], atol=0, rtol=0,
+                               equal_nan=True)
+    torch.testing.assert_close(rec_k[:, 7], rec_p[:, 7], atol=COS_ATOL,
+                               rtol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("s_mode", ["cumulative", "per_step"])
 @pytest.mark.parametrize("bvec", [False, True])
 @pytest.mark.parametrize("crosssections", [True, False])
-def test_kernel_matches_plain(cuda, exact, bvec, crosssections, s_mode):
-    """Every record row against the plain version (rows 0-6 bit for bit in
-    the exact build, per-step S included); the state carries cumulative S
-    in both modes."""
+def test_kernel_matches_plain(cuda, bvec, crosssections, s_mode):
+    """Every record row against the plain version (rows 0-6 bit for bit,
+    per-step S included); the state carries cumulative S in both modes."""
     tcube, scube, state, grid = _inputs(cuda, bvec)
     args = (tcube, scube, state, grid, 5e-3, 1, 10, 8, 2.0, crosssections)
     launches = trace_segment.launches
@@ -118,12 +103,11 @@ def test_kernel_matches_plain(cuda, exact, bvec, crosssections, s_mode):
     st_p, rec_p = trace_segment_plain(*args, s_mode=s_mode)
     torch.cuda.synchronize()
     assert trace_segment.launches == launches + 1
-    _assert_records_match(rec_k, rec_p, exact)
+    _assert_records_match(rec_k, rec_p)
     torch.testing.assert_close(st_k[:3], st_p[:3], atol=2e-4, rtol=2e-4)
     assert torch.all(rec_k[:, 3, :4] == (0.0 if crosssections else 1.0))
-    if exact:
-        torch.testing.assert_close(st_k[6], st_p[6], atol=0, rtol=0,
-                                   equal_nan=True)
+    torch.testing.assert_close(st_k[6], st_p[6], atol=0, rtol=0,
+                               equal_nan=True)
     if crosssections and s_mode == "per_step":
         st_c, rec_c = trace_segment(*args)
         torch.testing.assert_close(st_k, st_c, atol=0, rtol=0,
@@ -164,16 +148,14 @@ def _cache_scene(device, scene, bvec, n_rays=1000):
 
 @pytest.mark.parametrize("bvec", [False, True])
 @pytest.mark.parametrize("scene", ["large_dt", "upper_faces", "leaving"])
-def test_cache_scenes_match_plain(cuda, exact, scene, bvec):
+def test_cache_scenes_match_plain(cuda, scene, bvec):
     args = _cache_scene(cuda, scene, bvec)
     st_k, rec_k = trace_segment(*args)
     st_p, rec_p = trace_segment_plain(*args)
     torch.cuda.synchronize()
     assert rec_k.shape == (args[-1], 8, 1000)
-    _assert_records_match(rec_k, rec_p, exact)
-    if exact:
-        torch.testing.assert_close(st_k, st_p, atol=0, rtol=0,
-                                   equal_nan=True)
+    _assert_records_match(rec_k, rec_p)
+    torch.testing.assert_close(st_k, st_p, atol=0, rtol=0, equal_nan=True)
     if scene == "leaving":
         assert torch.isnan(rec_k[:, 0, 500:520]).all()
         frozen = rec_k[-1, 3, :500] == 0
@@ -278,11 +260,10 @@ def test_freeze_scene_covers_the_exit_cases(cuda):
 @pytest.mark.parametrize("s_mode", ["cumulative", "per_step"])
 @pytest.mark.parametrize("bvec", [False, True])
 @pytest.mark.parametrize("crosssections", [True, False])
-def test_kernel_exit_matches_plain(cuda, exact, crosssections, bvec, s_mode):
+def test_kernel_exit_matches_plain(cuda, crosssections, bvec, s_mode):
     """On _freeze_scene, two launches, the second continuing from the
     kernel's state: the records (rows 0-6) and the state of each equal the
-    plain version's bit for bit in the exact build (NaN where it has NaN),
-    and within ROW_TOL in the FMA build."""
+    plain version's bit for bit (NaN where it has NaN)."""
     tcube, scube, state, grid = _freeze_scene(cuda, bvec)
     for launch in FREEZE_LAUNCHES:
         args = (tcube, scube, state, grid, 5e-3, *launch, 2.0,
@@ -290,13 +271,9 @@ def test_kernel_exit_matches_plain(cuda, exact, crosssections, bvec, s_mode):
         st_k, rec_k = trace_segment(*args, s_mode=s_mode)
         st_p, rec_p = trace_segment_plain(*args, s_mode=s_mode)
         torch.cuda.synchronize()
-        _assert_records_match(rec_k, rec_p, exact)
-        if exact:
-            torch.testing.assert_close(st_k, st_p, atol=0, rtol=0,
-                                       equal_nan=True)
-        else:
-            torch.testing.assert_close(st_k, st_p, atol=2e-4, rtol=5e-3,
-                                       equal_nan=True)
+        _assert_records_match(rec_k, rec_p)
+        torch.testing.assert_close(st_k, st_p, atol=0, rtol=0,
+                                   equal_nan=True)
         state = st_k
 
 

@@ -179,55 +179,6 @@ def test_written_map_equals_the_returned_one(cubes, tmp_path):
     assert timings["write"] >= 0.0
 
 
-FROZEN_RUN = RayEmissionConfig(
-    n_pix=8, x_fov=1.3, freq_hz=150e6, grid_n=40, grid_extent=2.5,
-    z_observer=2.5, dt=8e-2, n_steps=200, record_stride=10, seg_records=4)
-
-
-def test_trace_frozen_counts_equal_a_count_of_the_state(cubes, monkeypatch):
-    """Traced, a map's timings["trace_frozen"] holds, a segment, the rays
-    whose state k has a non-finite component at the launch, counted here
-    on the states tracer_segments passed to the kernel, and the rays; the count
-    rises as rays leave the cube."""
-    from raytracinggrff_tpu_torch import tracer_segments
-    launch, states = tracer_segments.trace_segment, []
-
-    def spy(tcube, scube, state, *rest):
-        states.append(state.clone())
-        return launch(tcube, scube, state, *rest)
-
-    monkeypatch.setattr(tracer_segments, "trace_segment", spy)
-    timings = {}
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU]):
-        run_ray_tracing_emission(cubes=cubes, verbose=False, device="cpu",
-                                 timings=timings, config=FROZEN_RUN)
-    frozen = timings["trace_frozen"]
-    assert len(frozen) == len(states) == timings["segments"]
-    assert frozen == [[int((~torch.isfinite(s[3:6])).any(dim=0).sum()), 64]
-                      for s in states]
-    counts = [f for f, _ in frozen]
-    assert counts == sorted(counts) and counts[0] == 0 and counts[-1] > 0
-
-
-def test_untraced_map_counts_no_frozen_rays(cubes, monkeypatch):
-    """Without torch.profiler, a map's timings hold no trace_frozen count,
-    and tracer_segments.run_segments is given no tensor to count into."""
-    from raytracinggrff_tpu_torch import tracer_segments
-    run, given = tracer_segments.run_segments, []
-
-    def spy(*a, **k):
-        given.append(k["frozen_counts"])
-        return run(*a, **k)
-
-    monkeypatch.setattr(tracer_segments, "run_segments", spy)
-    timings = {}
-    run_ray_tracing_emission(cubes=cubes, verbose=False, device="cpu",
-                             timings=timings, config=FROZEN_RUN)
-    assert "trace_frozen" not in timings and timings["segments"] > 0
-    assert given == [None]
-
-
 @pytest.mark.parametrize("option", [{"mesh": object()}])
 def test_mesh_option_must_be_a_ray_mesh(corona, option):
     """A mesh that is not a parallel.mesh.RayMesh (a JAX Mesh, say) is

@@ -289,20 +289,19 @@ def test_wrapper_dispatches_cpu_to_plain_and_checks_inputs():
 
 
 def test_exact_build_only_adds_fmad_false_and_no_build_loosens_ieee():
-    """The shipped build (NVCC_FLAGS) is the exact one: without FMA
-    contraction (-fmad=false) it rounds as the plain version's separate
-    torch ops do, and the CUDA tests hold it to the plain version bit for
-    bit. The FMA build kept for measurement (FMA_NVCC_FLAGS) differs from
-    it only by -fmad=false, and neither build loosens IEEE division,
-    square root or denormals."""
-    from raytracinggrff_tpu_torch.ops._build import (FMA_NVCC_FLAGS,
-                                                     NVCC_FLAGS,
-                                                     build_library)
-    assert NVCC_FLAGS == FMA_NVCC_FLAGS + ("-fmad=false",)
-    assert build_library.__defaults__ == (NVCC_FLAGS,)
-    loose = {"--use_fast_math", "-use_fast_math", "-ftz=true",
-             "-prec-div=false", "-prec-sqrt=false", "-fmad=true"}
-    assert not loose & (set(NVCC_FLAGS) | set(FMA_NVCC_FLAGS))
+    """The one build (NVCC_FLAGS) is exact: without FMA contraction
+    (-fmad=false) it rounds as the plain version's separate torch ops do,
+    and the CUDA tests hold it to the plain version bit for bit. No flag
+    loosens IEEE division, square root, denormals or contraction, and
+    build_library takes no flags of its own."""
+    import inspect
+    from raytracinggrff_tpu_torch.ops._build import NVCC_FLAGS, build_library
+    assert [f for f in NVCC_FLAGS if "fmad" in f] == ["-fmad=false"]
+    assert not inspect.signature(build_library).parameters
+    loose = {"--use_fast_math", "-use_fast_math", "-ftz=true", "--ftz=true",
+             "-prec-div=false", "--prec-div=false", "-prec-sqrt=false",
+             "--prec-sqrt=false", "-fmad=true", "--fmad=true"}
+    assert not loose & set(NVCC_FLAGS)
 
 
 @pytest.mark.parametrize("n,channels,wide", [
