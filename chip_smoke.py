@@ -120,10 +120,16 @@ Phases:
      x 128^3, 11 frequencies) under torch.profiler: one count launch a
      segment, each segment's counts equal to fold_counts_plain's on the
      records its fold was given, and the map equal to the untraced one
+ 20. the trace-input kernel (rgrff_pack_trace_inputs) against
+     pack_trace_inputs_plain on the card at 128^3 (the canonical cube)
+     and 576^3 (the sweep's largest), with 4 and 8 sample channels: trace
+     and sample cubes equal bit for bit, one launch a call, each timed
+     beside its bound (PACK_BYTES a voxel at PEAK_BYTES_S)
 Each path that traces rays runs with the launch counts set to 0 just
 before it and checks them against its segment count just after: the
 trace kernel's and the record fold's, one launch each a segment; a LOS
-chain's synthetic_ff launches the voxel fold once. Every prepare_cubes
+chain's synthetic_ff launches the voxel fold once, and a map the
+trace-input kernel once (phases 4 and 10). Every prepare_cubes
 (phases 4, 7, 10, 16, 17 and 18) launches the resample once for its five
 variables, resample_mas_los (phases 6 and 18) the spherical sampler once,
 bench's LOS sampling (phase 11) the ds scan once a sampling, and get_mw
@@ -228,6 +234,13 @@ SAMPLE_FLOPS = 40
 RESAMPLE_FLOPS = 50
 DS_FLOPS = 10
 DEM_FLOPS = 6
+# the plain torch ops that the trace-input kernel replaces; it replaces no
+# TPU kernel
+PACK_REPLACES = "none: torch roll, cat and stack (pack_trace_inputs_plain)"
+# bytes a voxel the trace-input kernel moves at least, by sample channels:
+# omega_pe, ne, te, b (and Bx, By, Bz) read once, the trace cube's 16 and
+# the sample cube's 16 (32) written once
+PACK_BYTES = {4: 48, 8: 76}
 # phase 18's bar on the resample and sampler kernels against their plain
 # versions, in ulps of a float32 value, with equal NaN masks
 RESAMPLE_ULP_BAR = 0
@@ -360,12 +373,15 @@ def plain_folds():
 
 
 def reset_counts():
-    """Set the launch counts of every kernel to 0: the trace kernel, both
-    folds, the resample and the spherical sampler, and both scans."""
+    """Set the launch counts of every kernel to 0: the trace kernel and
+    its inputs', both folds, the resample and the spherical sampler, and
+    both scans."""
     from raytracinggrff_tpu_torch.ops import los_scans, resample
-    from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
+    from raytracinggrff_tpu_torch.ops.trace_segment import (pack_trace_inputs,
+                                                            trace_segment)
     from raytracinggrff_tpu_torch.ops.transfer_fold import LAUNCHES
     trace_segment.launches = 0
+    pack_trace_inputs.launches = 0
     for counts in (LAUNCHES, resample.LAUNCHES, los_scans.LAUNCHES):
         counts.update(dict.fromkeys(counts, 0))
 
@@ -603,7 +619,8 @@ def phase_segments(out, n_pix=256, n_steps=5000):
 
 def phase_main(out, tmp):
     from raytracinggrff_tpu_torch.mas.model import synthetic_mas_model
-    from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
+    from raytracinggrff_tpu_torch.ops.trace_segment import (pack_trace_inputs,
+                                                            trace_segment)
     from raytracinggrff_tpu_torch.pipeline import (RayEmissionConfig,
                                                    run_ray_tracing_emission)
     model = synthetic_mas_model(Path(tmp) / "corona", timestep=2)
@@ -621,6 +638,7 @@ def phase_main(out, tmp):
         wall = time.perf_counter() - t0
         launches = trace_segment.launches
         assert launches == n_seg == timings["segments"], (launches, n_seg)
+        assert pack_trace_inputs.launches == 1, pack_trace_inputs.launches
         folds = check_folds("4", "records", n_seg)
         resamples = check_kernel("4", "resample", "cube", 1)
         rate = 256 * 256 * steps / timings["trace"]
@@ -628,8 +646,9 @@ def phase_main(out, tmp):
             f"{timings['resample']:.4f} s, trace {timings['trace']:.4f} s "
             f"({rate:.4g} ray-steps/s over {steps} steps), transfer "
             f"{timings['transfer']:.4f} s, finish {timings['finish']:.4f} s;"
-            f" kernel launches {launches} = segments {n_seg}, record-fold "
-            f"launches {folds}, resample launches {resamples}")
+            f" kernel launches {launches} = segments {n_seg}, trace-input "
+            f"launches 1, record-fold launches {folds}, resample launches "
+            f"{resamples}")
     tb = res["emission_cube"]
     assert tb.shape == (256, 256, 3) and np.all(np.isfinite(tb)), tb.shape
     disk = np.load(npz)["emission_cube"]
@@ -642,7 +661,7 @@ def phase_main(out, tmp):
         f"1e4..3e6 K; percentiles 0/1/50/99/100: "
         f"{', '.join('%.4g' % p for p in pct)}")
     assert inside.all(), "on-disk T_b outside 1e4..3e6 K"
-    out.update(launches=launches, fold_launches=folds,
+    out.update(launches=launches, pack_launches=1, fold_launches=folds,
                resample_launches=resamples, wall=wall, timings=timings)
     return res
 
@@ -884,7 +903,8 @@ def phase_sweep(tmp, indices=SWEEP_INDICES, n_pix=128, device="cuda"):
                                                          sweep_frequencies)
     from raytracinggrff_tpu_torch.mas.model import (MASModel,
                                                     synthetic_mas_model)
-    from raytracinggrff_tpu_torch.ops.trace_segment import trace_segment
+    from raytracinggrff_tpu_torch.ops.trace_segment import (pack_trace_inputs,
+                                                            trace_segment)
     from raytracinggrff_tpu_torch.pipeline import prepare_cubes
     from raytracinggrff_tpu_torch.tracer_segments import prepare_trace_inputs
     model = synthetic_mas_model(Path(tmp) / "corona_sweep")
@@ -898,10 +918,13 @@ def phase_sweep(tmp, indices=SWEEP_INDICES, n_pix=128, device="cuda"):
                          verbose=False)
         wall = time.perf_counter() - t0
         launches = trace_segment.launches
+        packs = pack_trace_inputs.launches
     segments = sum(t["segments"] for t in timings)
     say(f"[10] {len(rows)} map(s): wall {wall:.3f} s; kernel and "
-        f"record-fold launches {launches} = segments {segments}")
+        f"record-fold launches {launches} = segments {segments}; "
+        f"trace-input launches {packs}, one a map")
     assert launches == segments, (launches, segments)
+    assert packs == len(rows), (packs, len(rows))
     check_folds("10", "records", segments, device)
     sets = {(t["grid_n"], round(t["grid_extent"], 6)) for t in timings}
     resamples = check_kernel("10", "resample", "cube", len(sets), device)
@@ -1886,6 +1909,58 @@ MAS_VARIABLES = ("rho", "t", "br", "bt", "bp")
 ONE_VARIABLE_DESIGN_MS = {128: 0.0419, 576: 3.4342, "sample": 0.0998}
 
 
+def pack_scene(n, extent):
+    """The (grid, [omega_pe, ne, te, b, Bx, By, Bz]) of a trace-input
+    launch on an n^3 cube of half-width `extent`, float32 on the card:
+    harness.make_cube's density profile, and bundle_scene's te, b and B
+    vector, computed on the device."""
+    from raytracinggrff_tpu_torch.grids import UniformGrid
+    grid = UniformGrid.cube(extent, n)
+    x, y, z = torch.meshgrid(*[torch.as_tensor(a, dtype=torch.float32,
+                                               device="cuda")
+                               for a in grid.axes()], indexing="ij")
+    r = torch.sqrt(x * x + y * y + z * z)
+    ne = 4.2e4 * 10 ** (4.32 / torch.clamp(r, min=0.5))
+    return grid, [8.93e3 * torch.sqrt(ne) * 2 * np.pi, ne,
+                  1e6 + 1e5 * z, 1.0 + 0.2 * x, 1.0 + 0.2 * x,
+                  0.5 * y - 0.3, 0.2 - 0.4 * z]
+
+
+def phase_pack(out, sets=((128, 3.0), (576, 1.5))):
+    """Phase 20: rgrff_pack_trace_inputs against pack_trace_inputs_plain
+    on pack_scene at each (n, extent) of `sets` (the canonical cube and
+    the sweep's largest), with 4 and 8 sample channels: both cubes equal
+    bit for bit (int32 views), one launch a call, the wrapper timed by
+    cuda_ms, the kernel alone by device_ms, the plain version by cuda_ms,
+    beside the bound of PACK_BYTES a voxel at PEAK_BYTES_S. Keeps the
+    largest set's 4-channel entry in out["pack"]."""
+    from raytracinggrff_tpu_torch.ops.trace_segment import (
+        pack_trace_inputs, pack_trace_inputs_plain)
+    for n, extent in sets:
+        grid, f = pack_scene(n, extent)
+        for channels in (4, 8):
+            args = (*f[:4], grid, tuple(f[4:]) if channels == 8 else None)
+            reset_counts()
+            got = pack_trace_inputs(*args)
+            assert pack_trace_inputs.launches == 1, pack_trace_inputs.launches
+            want = pack_trace_inputs_plain(*args)
+            equal = [torch.equal(a.view(torch.int32), b.view(torch.int32))
+                     for a, b in zip(got, want)]
+            say(f"[20] {n}^3, {channels} channels: trace and sample cubes "
+                f"equal to the plain version's bit for bit {equal}")
+            assert all(equal), equal
+            del got, want
+            times = time_kernel(lambda: pack_trace_inputs(*args),
+                                lambda: pack_trace_inputs_plain(*args))
+            entry = kernel_entry(
+                "20", f"pack_trace_inputs at {n}^3, {channels} channels",
+                times, bound(0, PACK_BYTES[channels] * n ** 3), 0.0)
+            if channels == 4:
+                out["pack"] = entry
+        del f
+        torch.cuda.empty_cache()
+
+
 def resample_bound(arrays, n):
     """Least time for one cube resample of n^3 voxels from the MAS arrays
     (data and axes): RESAMPLE_FLOPS a voxel, the cube written and the
@@ -2200,6 +2275,7 @@ def main():
         phase_small(out)
         phase_canonical(out)
         phase_segments(out)
+        phase_pack(out)
         with tempfile.TemporaryDirectory() as tmp:
             one = phase_main(out, tmp)
         cubes = phase_map()
@@ -2233,6 +2309,8 @@ def main():
              max_abs_err=out["max_abs_err"], ms=out["ms"],
              plain_ms=out["plain_ms"], bound_ms=out["bound_ms"],
              bound_by=out["bound_by"]),
+        dict(out["pack"], name="pack_trace_inputs", source=KERNEL_SOURCE,
+             replaces=PACK_REPLACES, launches=out["pack_launches"]),
         dict(fold, name="fold_records", source=FOLD_SOURCE,
              replaces=FOLD_REPLACES["records"],
              launches=out["fold_launches"]),

@@ -1,4 +1,5 @@
-// Trace-segment kernel for Hopper (sm_90a), bound through a plain C entry.
+// Trace-segment kernel for Hopper (sm_90a), bound through a plain C entry,
+// and at the end of the file the kernel that builds its input cubes.
 //
 // Replaces the Pallas TPU kernel raytracinggrff_tpu/ops/pallas_trace.py::
 // _make_kernel (pallas_call at ops/pallas_trace.py:654, launched by
@@ -455,6 +456,135 @@ extern "C" int rgrff_trace_segment(const void* tcube, const void* scube,
     launch_cs<int64_t>(t, s, in, out, rec, p, st);
   else
     launch_cs<int>(t, s, in, out, rec, p, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The trace inputs: the two channels-last cubes the trace kernel reads,
+// built in one pass.
+//
+// Replaces no TPU kernel (the JAX package leaves this to XLA). Plain torch
+// (ops/trace_segment.pack_trace_inputs_plain) makes two rolled copies of
+// omega_pe an axis, a difference, a product and a cat for each gradient,
+// then stacks the channels 4 bytes at a 16- or 32-byte stride: some 200
+// bytes of device traffic a voxel.
+// What bounds this kernel: the bytes, each input read once and each output
+// written once, 48 a voxel with 4 sample channels (16 read, 32 written) and
+// 76 with 8 (28 read, 48 written), at the card's memory rate.
+// What its design does about that: a block of kPackZ x kPackY threads takes
+// a (y, z) tile, z fastest, so that a warp reads 128 contiguous bytes of
+// each input and writes each voxel's channels as one 16-byte store (two for
+// the 8-channel sample cube), and marches kPackRun planes along x. A thread
+// keeps omega_pe at x - 1, x and x + 1 of its column in registers, so it
+// loads each plane of its column once; its y and z neighbours are the
+// values the neighbouring threads of the block load in the same plane, and
+// come from L1. At 128^3 the grid has 1,024 blocks of 256 threads, near
+// eight an SM on 132 SMs; at 576^3, 93,312.
+// The arithmetic is torch's on the card, bit for bit: a difference times
+// the float32 reciprocal of the step, 1/(2h) inside and 1/h at the
+// one-sided edges, since torch's CUDA division by a Python float multiplies
+// by the divisor's reciprocal, taken in float64 and rounded to float32
+// (div_true_kernel_cuda); the wrapper computes the reciprocals that way.
+// Non-finite inputs go through the same operations, and the zero channels
+// are written as +0.
+
+struct PackParams {  // mirrored by ops/_build.py::_PackParams
+  float inv_2dx, inv_2dy, inv_2dz, inv_dx, inv_dy, inv_dz;
+  int nx, ny, nz, sample_channels;
+};
+
+namespace {
+
+constexpr int kPackZ = 32;    // threads a block along z, the contiguous axis
+constexpr int kPackY = 8;     // threads a block along y
+constexpr int kPackRun = 8;   // x planes a block marches through
+
+// The derivative at index i of an axis of n >= 2 nodes from the values at
+// i - 1, i and i + 1 (those off the axis unused): one-sided at the edges,
+// central inside, as tracer.gradient_cubes.
+__device__ __forceinline__ float axis_slope(float lo, float mid, float hi,
+                                            int i, int n, float inv_h,
+                                            float inv_2h) {
+  if (i == 0) return (hi - mid) * inv_h;
+  if (i == n - 1) return (mid - lo) * inv_h;
+  return (hi - lo) * inv_2h;
+}
+
+// G float4 groups of sample channels: 1 ([ne, te, b, 0]) or 2 ([ne, te, b,
+// Bx], [By, Bz, 0, 0]).
+template <int G>
+__global__ void __launch_bounds__(kPackZ * kPackY) pack_trace_inputs_kernel(
+    const float* __restrict__ wpe, const float* __restrict__ ne,
+    const float* __restrict__ te, const float* __restrict__ b,
+    const float* __restrict__ bx, const float* __restrict__ by,
+    const float* __restrict__ bz, float4* __restrict__ tcube,
+    float4* __restrict__ scube, const PackParams p) {
+  const int k = blockIdx.x * kPackZ + threadIdx.x;
+  const int j = blockIdx.y * kPackY + threadIdx.y;
+  if (k >= p.nz || j >= p.ny) return;
+  const int64_t plane = int64_t(p.ny) * p.nz;
+  const int i0 = blockIdx.z * kPackRun;
+  const int i1 = min(i0 + kPackRun, p.nx);
+  int64_t v = i0 * plane + int64_t(j) * p.nz + k;
+  float lo = i0 > 0 ? __ldg(wpe + (v - plane)) : 0.f;
+  float mid = __ldg(wpe + v);
+  for (int i = i0; i < i1; ++i, v += plane) {
+    const float hi = i + 1 < p.nx ? __ldg(wpe + (v + plane)) : 0.f;
+    const float ym = j > 0 ? __ldg(wpe + (v - p.nz)) : 0.f;
+    const float yp = j + 1 < p.ny ? __ldg(wpe + (v + p.nz)) : 0.f;
+    const float zm = k > 0 ? __ldg(wpe + (v - 1)) : 0.f;
+    const float zp = k + 1 < p.nz ? __ldg(wpe + (v + 1)) : 0.f;
+    tcube[v] = make_float4(
+        mid, axis_slope(lo, mid, hi, i, p.nx, p.inv_dx, p.inv_2dx),
+        axis_slope(ym, mid, yp, j, p.ny, p.inv_dy, p.inv_2dy),
+        axis_slope(zm, mid, zp, k, p.nz, p.inv_dz, p.inv_2dz));
+    const float n_e = __ldg(ne + v), t_e = __ldg(te + v), b_m = __ldg(b + v);
+    if (G == 1) {
+      scube[v] = make_float4(n_e, t_e, b_m, 0.f);
+    } else {
+      scube[2 * v] = make_float4(n_e, t_e, b_m, __ldg(bx + v));
+      scube[2 * v + 1] = make_float4(__ldg(by + v), __ldg(bz + v), 0.f, 0.f);
+    }
+    lo = mid;
+    mid = hi;
+  }
+}
+
+}  // namespace
+
+// Build the trace cube (nx, ny, nz, 4) = [omega_pe, d/dx, d/dy, d/dz] and
+// the sample cube (nx, ny, nz, sample_channels) = [ne, te, b, 0] or [ne, te,
+// b, Bx, By, Bz, 0, 0] in one launch on `stream`; returns
+// cudaGetLastError() (0 = launched). Inputs: float32 (nx, ny, nz) cubes,
+// contiguous; bx, by, bz are read only with 8 sample channels. Every axis
+// needs 2 nodes or more.
+extern "C" int rgrff_pack_trace_inputs(const void* wpe, const void* ne,
+                                       const void* te, const void* b,
+                                       const void* bx, const void* by,
+                                       const void* bz, void* tcube,
+                                       void* scube, PackParams p,
+                                       void* stream) {
+  const dim3 block(kPackZ, kPackY);
+  const dim3 grid((p.nz + kPackZ - 1) / kPackZ, (p.ny + kPackY - 1) / kPackY,
+                  (p.nx + kPackRun - 1) / kPackRun);
+  if (p.nx < 2 || p.ny < 2 || p.nz < 2 || grid.y > 65535 || grid.z > 65535 ||
+      (p.sample_channels != 4 && p.sample_channels != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* w = static_cast<const float*>(wpe);
+  const auto* n_e = static_cast<const float*>(ne);
+  const auto* t_e = static_cast<const float*>(te);
+  const auto* b_m = static_cast<const float*>(b);
+  const auto* b_x = static_cast<const float*>(bx);
+  const auto* b_y = static_cast<const float*>(by);
+  const auto* b_z = static_cast<const float*>(bz);
+  auto* t = static_cast<float4*>(tcube);
+  auto* s = static_cast<float4*>(scube);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (p.sample_channels == 8)
+    pack_trace_inputs_kernel<2><<<grid, block, 0, st>>>(
+        w, n_e, t_e, b_m, b_x, b_y, b_z, t, s, p);
+  else
+    pack_trace_inputs_kernel<1><<<grid, block, 0, st>>>(
+        w, n_e, t_e, b_m, b_x, b_y, b_z, t, s, p);
   return static_cast<int>(cudaGetLastError());
 }
 

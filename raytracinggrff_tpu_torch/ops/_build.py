@@ -5,11 +5,12 @@ Every csrc/*.cu file is compiled by one nvcc call into one shared library
 with a plain C interface, built at first use into
 raytracinggrff_tpu_torch/_build/ (git-ignored) and named by a hash of the
 sources and flags, then loaded with ctypes. The parameter structs mirror
-those of the sources: _TraceParams for csrc/trace_segment.cu, _FoldParams
-for csrc/transfer_fold.cu, whose harmonic tables _harmonic_tables builds,
-_SphParams for csrc/resample_sph.cu, _ScanParams and _DemParams for
-csrc/los_scans.cu. launch() calls a C entry on the current stream and
-raises on its error code.
+those of the sources: _TraceParams and _PackParams for
+csrc/trace_segment.cu, _FoldParams for csrc/transfer_fold.cu, whose
+harmonic tables _harmonic_tables builds, _SphParams for
+csrc/resample_sph.cu, _ScanParams and _DemParams for csrc/los_scans.cu.
+launch() calls a C entry on the current stream and raises on its error
+code.
 """
 
 from __future__ import annotations
@@ -46,6 +47,13 @@ class _TraceParams(ctypes.Structure):
         (name, ctypes.c_int) for name in (
             "nx", "ny", "nz", "n_rays", "n_first", "stride", "rps",
             "crosssections", "sample_channels", "wide_index", "per_step")]
+
+
+class _PackParams(ctypes.Structure):
+    """Mirror of struct PackParams in csrc/trace_segment.cu."""
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "inv_2dx", "inv_2dy", "inv_2dz", "inv_dx", "inv_dy", "inv_dz")] + [
+        (name, ctypes.c_int) for name in ("nx", "ny", "nz", "sample_channels")]
 
 
 FOLD_INT_FIELDS = ("n_rays", "nf", "n_steps", "mechanism", "gaunt_exact",
@@ -157,6 +165,9 @@ def load_library(path):
     # tcube, scube, state_in, state_out, records, params, stream
     lib.rgrff_trace_segment.argtypes = [ptr] * 5 + [_TraceParams, ptr]
     lib.rgrff_trace_segment.restype = ctypes.c_int
+    # wpe, ne, te, b, bx, by, bz, tcube, scube, params, stream
+    lib.rgrff_pack_trace_inputs.argtypes = [ptr] * 9 + [_PackParams, ptr]
+    lib.rgrff_pack_trace_inputs.restype = ctypes.c_int
     # recs, freqs, tables, carry_in (4), prev_in, carry_out, prev_out,
     # params, stream
     lib.rgrff_fold_records.argtypes = [ptr] * 10 + [

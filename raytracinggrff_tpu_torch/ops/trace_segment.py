@@ -1,5 +1,6 @@
-"""One trace segment per ray: the wrapper, the plain version and the build
-of the hand-written CUDA kernel (csrc/trace_segment.cu).
+"""One trace segment per ray, and the kernel's input cubes: the wrappers,
+the plain versions and the build of the hand-written CUDA kernels
+(csrc/trace_segment.cu).
 
 The kernel replaces the Pallas TPU kernel
 raytracinggrff_tpu/ops/pallas_trace.py::_make_kernel (launched by
@@ -15,11 +16,15 @@ product in both modes.
 Inputs are channels-last float32 cubes: the trace cube (nx, ny, nz, 4) holds
 [omega_pe, d/dx, d/dy, d/dz] and the sample cube (nx, ny, nz, 4 or 8) holds
 [ne, te, b, 0] or [ne, te, b, Bx, By, Bz, 0, 0]; reshaped to (N, C) they are
-the gather tables of ops/trilinear.pack_fields. The ray state is (7, n_rays)
-rows [x, y, z, kx, ky, kz, cumS].
+the gather tables of ops/trilinear.pack_fields. pack_trace_inputs builds both
+from the (nx, ny, nz) cubes in one launch (rgrff_pack_trace_inputs): the
+gradients and the channels-last layout that plain torch makes with rolls,
+cats and stacks. The ray state is (7, n_rays) rows [x, y, z, kx, ky, kz,
+cumS].
 
 Dispatch is by device: a CPU tensor runs the plain torch version; a CUDA
-tensor launches the kernel or raises. The kernel library (ops/_build.py)
+tensor launches the kernel or raises; each wrapper counts its launches in
+its `launches` attribute. The kernel library (ops/_build.py)
 is built with nvcc at first use into raytracinggrff_tpu_torch/_build/,
 named by a hash of the sources and flags.
 """
@@ -31,9 +36,10 @@ import torch
 
 from ..constants import C_R, FILL_B, FILL_NE, FILL_TE
 from ..grids import UniformGrid
-from ..tracer import advance_blocks, check_s_mode, cos_theta_signed
+from ..tracer import (advance_blocks, check_s_mode, cos_theta_signed,
+                      gradient_cubes)
 from . import _build
-from ._build import _TraceParams
+from ._build import _PackParams, _TraceParams
 from .trilinear import trilinear_packed
 
 STATE_ROWS = 7
@@ -151,3 +157,80 @@ def trace_segment_plain(tcube, scube, state, grid: UniformGrid, dt, n_first,
                                  v[:, 2], cos_t]))
     state_out = torch.cat([r, k, cum_s[None]])
     return state_out, torch.stack(recs)
+
+
+def pack_param_vec(grid: UniformGrid):
+    """[1/(2 dx), 1/(2 dy), 1/(2 dz), 1/dx, 1/dy, 1/dz] as float32: the
+    reciprocals by which torch's CUDA division of a float32 tensor by the
+    Python floats 2.0*h and h multiplies (div_true_kernel_cuda), each
+    taken in float64 and rounded once to float32."""
+    steps = (grid.dx, grid.dy, grid.dz)
+    return np.asarray([1.0 / (2.0 * h) for h in steps]
+                      + [1.0 / h for h in steps], np.float32)
+
+
+def _check_pack(cubes, grid):
+    device = cubes[0].device
+    for name, c in zip(("omega_pe", "ne", "te", "b", "bx", "by", "bz"),
+                       cubes):
+        if tuple(c.shape) != grid.shape:
+            raise ValueError(f"{name} cube shape {tuple(c.shape)} != grid "
+                             f"{grid.shape}")
+        if c.device != device:
+            raise ValueError(f"{name} cube is on {c.device}, omega_pe on "
+                             f"{device}")
+    if min(grid.shape) < 2:
+        raise ValueError(f"grid {grid.shape} needs >= 2 nodes per axis")
+
+
+def pack_trace_inputs(omega_pe_cube, ne_cube, te_cube, b_cube,
+                      grid: UniformGrid, bvec=None):
+    """(tcube, scube): the trace cube (nx, ny, nz, 4) = [omega_pe, d/dx,
+    d/dy, d/dz] and the sample cube (nx, ny, nz, 4) = [ne, te, b, 0], or
+    (nx, ny, nz, 8) = [ne, te, b, Bx, By, Bz, 0, 0] with `bvec` (three
+    cubes), float32 and contiguous, from (nx, ny, nz) tensors on one
+    device. CPU tensors run pack_trace_inputs_plain; CUDA tensors launch
+    rgrff_pack_trace_inputs once, which equals it bit for bit."""
+    cubes = [omega_pe_cube, ne_cube, te_cube, b_cube]
+    if bvec is not None:
+        if len(bvec) != 3:
+            raise ValueError(f"bvec must hold 3 cubes, got {len(bvec)}")
+        cubes += list(bvec)
+    _check_pack(cubes, grid)
+    device = omega_pe_cube.device
+    if device.type == "cpu":
+        return pack_trace_inputs_plain(omega_pe_cube, ne_cube, te_cube,
+                                       b_cube, grid, bvec)
+    if device.type != "cuda":
+        raise ValueError(f"no trace-input kernel for {device}")
+    cubes = [c.to(torch.float32).contiguous() for c in cubes]
+    channels = 4 if bvec is None else 8
+    tcube = torch.empty((*grid.shape, 4), dtype=torch.float32, device=device)
+    scube = torch.empty((*grid.shape, channels), dtype=torch.float32,
+                        device=device)
+    params = _PackParams(*map(float, pack_param_vec(grid)), *grid.shape,
+                         channels)
+    ptrs = [c.data_ptr() for c in cubes] + [None] * (7 - len(cubes))
+    _build.launch("rgrff_pack_trace_inputs", device, *ptrs,
+                  tcube.data_ptr(), scube.data_ptr(), params)
+    pack_trace_inputs.launches += 1
+    return tcube, scube
+
+
+pack_trace_inputs.launches = 0
+
+
+def pack_trace_inputs_plain(omega_pe_cube, ne_cube, te_cube, b_cube,
+                            grid: UniformGrid, bvec=None):
+    """The kernel's computation in plain torch (tracer.gradient_cubes,
+    torch.stack), on any device; same signature and outputs."""
+    wpe = omega_pe_cube.to(torch.float32)
+    tcube = torch.stack([wpe, *gradient_cubes(wpe, grid)], dim=-1)
+    channels = [ne_cube, te_cube, b_cube]
+    if bvec is not None:
+        channels += list(bvec)
+    nch = 4 if bvec is None else 8
+    zero = torch.zeros_like(wpe)
+    channels += [zero] * (nch - len(channels))
+    scube = torch.stack([c.to(torch.float32) for c in channels], dim=-1)
+    return tcube.contiguous(), scube.contiguous()

@@ -2,7 +2,8 @@
 package's tracer_pallas.py.
 
 `iter_trace_segments` prepares the kernel inputs once (channels-last trace
-and sample cubes, initial wave vectors) and then `run_segments` launches
+and sample cubes, one launch of their own kernel on a card; initial wave
+vectors) and then `run_segments` launches
 ops/trace_segment.trace_segment once per segment, yielding (rps, 8, n_rays)
 record blocks with rows [x, y, z, S, ne, te, b, cos_theta] in the
 original ray order. Segments only bound the record memory: the ray state
@@ -22,9 +23,9 @@ import numpy as np
 import torch
 
 from .grids import UniformGrid
-from .ops.trace_segment import trace_segment
+from .ops.trace_segment import pack_trace_inputs, trace_segment
 from .parallel.mesh import all_gather, shard_rays
-from .tracer import gradient_cubes, init_k_vectors
+from .tracer import init_k_vectors
 from .utils import profiling
 
 
@@ -43,17 +44,10 @@ def prepare_trace_inputs(omega_pe_cube, ne_cube, te_cube, b_cube,
     ops/trilinear.pack_fields: the trace cube (nx, ny, nz, 4) =
     [omega_pe, d/dx, d/dy, d/dz] and the sample cube (nx, ny, nz, 4) =
     [ne, te, b, 0], or (nx, ny, nz, 8) = [ne, te, b, Bx, By, Bz, 0, 0]
-    with `bvec`. Cubes are tensors on the device the kernel runs on."""
-    wpe = omega_pe_cube.to(torch.float32)
-    tcube = torch.stack([wpe, *gradient_cubes(wpe, grid)], dim=-1)
-    channels = [ne_cube, te_cube, b_cube]
-    if bvec is not None:
-        channels += list(bvec)
-    nch = 4 if bvec is None else 8
-    zero = torch.zeros_like(wpe)
-    channels += [zero] * (nch - len(channels))
-    scube = torch.stack([c.to(torch.float32) for c in channels], dim=-1)
-    return tcube.contiguous(), scube.contiguous()
+    with `bvec`. Cubes are tensors on the device the kernel runs on; on a
+    card one launch of ops/trace_segment.pack_trace_inputs builds both."""
+    return pack_trace_inputs(omega_pe_cube, ne_cube, te_cube, b_cube, grid,
+                             bvec)
 
 
 def segment_plan(n_steps, record_stride, seg_records):
@@ -124,6 +118,13 @@ def iter_trace_segments(omega_pe_cube, ne_cube, te_cube, b_cube,
     if mesh is not None:
         start, kdir = shard_rays(start, mesh), shard_rays(kdir, mesh)
     with profiling.span("trace_inputs", "device"):
+        # The rays go up before the cubes' launch: a copy from pageable
+        # host memory waits for the stream, so after the launch it would
+        # hold the host until the kernel ends, with the start state's small
+        # ops still to queue and the device idle while they are.
+        start, kdir = (torch.as_tensor(a, dtype=torch.float32,
+                                       device=omega_pe_cube.device)
+                       for a in (start, kdir))
         tcube, scube = prepare_trace_inputs(omega_pe_cube, ne_cube, te_cube,
                                             b_cube, grid, bvec)
         state = initial_state(tcube, grid, freq_hz, start, kdir)

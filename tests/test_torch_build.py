@@ -78,15 +78,33 @@ def test_load_library_declares_no_entry_the_sources_lack(declared):
     assert set(declared) == set(ENTRIES)
 
 
-def test_trace_params_mirror_the_cuda_struct():
-    """ops/_build._TraceParams lists the fields of struct TraceParams in
-    csrc/trace_segment.cu in its order and C types."""
-    src = (_build.CSRC / "trace_segment.cu").read_text()
-    body = re.search(r"struct TraceParams \{[^\n]*\n(.*?)\n\};", src,
+def _struct_fields(src, struct):
+    """[(field, C type)] of `struct` in the source text `src`, in order."""
+    body = re.search(rf"struct {struct} \{{[^\n]*\n(.*?)\n\}};", src,
                      re.S).group(1)
     fields = []
     for ctype, names in re.findall(r"^\s*(\w+) ([^;]+);", body, re.M):
         fields += [(name.strip(), ctype) for name in names.split(",")]
+    return fields
+
+
+def _mirror_fields(mirror):
     base = {ctypes.c_int: "int", ctypes.c_float: "float"}
-    assert fields == [(name, base[ct])
-                      for name, ct in _build._TraceParams._fields_]
+    return [(name, base[ct]) for name, ct in mirror._fields_]
+
+
+def test_trace_params_mirror_the_cuda_struct():
+    """ops/_build._TraceParams lists the fields of struct TraceParams in
+    csrc/trace_segment.cu in its order and C types."""
+    src = (_build.CSRC / "trace_segment.cu").read_text()
+    assert _struct_fields(src, "TraceParams") == _mirror_fields(
+        _build._TraceParams)
+
+
+def test_pack_params_mirror_the_cuda_struct():
+    """ops/_build._PackParams lists the fields of struct PackParams, the
+    parameters of rgrff_pack_trace_inputs in csrc/trace_segment.cu, in its
+    order and C types."""
+    src = (_build.CSRC / "trace_segment.cu").read_text()
+    assert _struct_fields(src, "PackParams") == _mirror_fields(
+        _build._PackParams)

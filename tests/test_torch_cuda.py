@@ -1,6 +1,6 @@
-"""Kernel tests that need a CUDA card (the trace segment, the transfer
-folds, the MAS resample and spherical sampler, and the line-of-sight
-scans); each skips without one. The file imports no jax, so it runs on a
+"""Kernel tests that need a CUDA card (the trace segment and its input
+cubes, the transfer folds, the MAS resample and spherical sampler, and the
+line-of-sight scans); each skips without one. The file imports no jax, so it runs on a
 machine with PyTorch for CUDA alone (the repository's conftest.py imports
 jax, hence --noconftest):
 
@@ -16,10 +16,13 @@ from raytracinggrff_tpu_torch.grids import UniformGrid
 from raytracinggrff_tpu_torch.ops import _build
 from raytracinggrff_tpu_torch.ops import trace_segment as ts
 from raytracinggrff_tpu_torch.ops import transfer_fold as tf
-from raytracinggrff_tpu_torch.ops.trace_segment import (trace_segment,
-                                                        trace_segment_plain)
+from raytracinggrff_tpu_torch.ops.trace_segment import (
+    pack_trace_inputs, pack_trace_inputs_plain, trace_segment,
+    trace_segment_plain)
 from raytracinggrff_tpu_torch.tracer import init_k_vectors
-from raytracinggrff_tpu_torch.tracer_segments import prepare_trace_inputs
+from raytracinggrff_tpu_torch.tracer_segments import (initial_state,
+                                                      prepare_trace_inputs,
+                                                      run_segments)
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -281,6 +284,136 @@ def test_wrapper_refuses_mixed_devices(cuda):
     tcube, scube, state, grid = _inputs(cuda, False, n_rays=8, n=9)
     with pytest.raises(ValueError, match="is on"):
         trace_segment(tcube.cpu(), scube, state, grid, 5e-3, 1, 10, 1)
+
+
+# The trace-input kernel (rgrff_pack_trace_inputs) against its plain
+# version on the card, bit for bit: the canonical 128^3 cube and the
+# sweep's largest, 576^3; a non-cubic grid with distinct steps; an axis of
+# two nodes on each axis; a ragged grid that fills no tile.
+PACK_GRIDS = {
+    "canonical": UniformGrid.cube(3.0, 128),
+    "sweep_576": UniformGrid.cube(1.5, 576),
+    "odd": UniformGrid(-1.0, 0.5, 2.0, 0.31, 0.17, 0.023, 7, 5, 3),
+    "x_of_two": UniformGrid(0.0, 0.0, 0.0, 0.1, 0.2, 0.3, 2, 9, 33),
+    "y_of_two": UniformGrid(0.0, 0.0, 0.0, 0.1, 0.2, 0.3, 9, 2, 33),
+    "z_of_two": UniformGrid(0.0, 0.0, 0.0, 0.1, 0.2, 0.3, 9, 33, 2),
+    "ragged": UniformGrid(-1.0, -1.0, -1.0, 0.013, 0.011, 0.017, 130, 129,
+                          131)}
+
+
+def _pack_fields(device, grid, dtype=torch.float32, special=False, seed=0):
+    """omega_pe, ne, te, b, Bx, By, Bz on the device: the canonical density
+    profile of harness.make_cube on the node radius plus 1% noise, or with
+    `special` noise alone and NaN, +-inf, +-0 at a thousandth of the nodes
+    and along every face."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = grid.shape
+    axes = [torch.as_tensor(a, dtype=dtype, device=device)
+            for a in grid.axes()]
+    x, y, z = torch.meshgrid(*axes, indexing="ij")
+    r = torch.sqrt(x * x + y * y + z * z)
+    ne = 4.2e4 * 10 ** (4.32 / torch.clamp(r, min=0.5))
+    base = [8.93e3 * torch.sqrt(ne) * 2 * np.pi, ne, 1.4e6 + 0 * r,
+            1.0 + 0.2 * x, 1.0 + 0.2 * x, 0.5 * y - 0.3, 0.2 - 0.4 * z]
+    del x, y, z, r
+    cubes = []
+    for c in base:
+        noise = torch.rand(shape, generator=gen, device=device, dtype=dtype)
+        cubes.append(noise * c.abs().max() if special
+                     else c * (0.995 + 0.01 * noise))
+    if special:
+        values = torch.tensor([np.nan, np.inf, -np.inf, 0.0, -0.0],
+                              dtype=dtype, device=device)
+        for c in cubes:
+            pick = torch.randint(0, c.numel(), (max(c.numel() // 1000, 5),),
+                                 generator=gen, device=device)
+            c.view(-1)[pick] = values[torch.arange(pick.numel(),
+                                                   device=device) % 5]
+            for face in (c[0], c[-1], c[:, 0], c[:, -1], c[..., 0],
+                         c[..., -1]):
+                face[::3, ::2] = values[0]
+                face[1::5, 1::3] = values[1]
+    return cubes
+
+
+def _assert_packs_equal(cubes, grid, bvec):
+    """pack_trace_inputs launches once and equals pack_trace_inputs_plain
+    on the same tensors bit for bit (int32 views)."""
+    extra = tuple(cubes[4:]) if bvec else None
+    launches = pack_trace_inputs.launches
+    got = pack_trace_inputs(*cubes[:4], grid, extra)
+    torch.cuda.synchronize()
+    assert pack_trace_inputs.launches == launches + 1
+    want = pack_trace_inputs_plain(*cubes[:4], grid, extra)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous()
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("bvec", [False, True])
+@pytest.mark.parametrize("grid_name", sorted(PACK_GRIDS))
+def test_pack_kernel_matches_plain(cuda, grid_name, bvec):
+    grid = PACK_GRIDS[grid_name]
+    _assert_packs_equal(_pack_fields(cuda, grid), grid, bvec)
+
+
+@pytest.mark.parametrize("bvec", [False, True])
+@pytest.mark.parametrize("grid_name", ["odd", "z_of_two", "ragged"])
+def test_pack_kernel_matches_plain_on_non_finite_inputs(cuda, grid_name,
+                                                        bvec):
+    """NaN, +-inf and +-0 in every cube, on the faces too, come out as the
+    plain version makes them, NaN bits included."""
+    grid = PACK_GRIDS[grid_name]
+    cubes = _pack_fields(cuda, grid, special=True)
+    assert not torch.isfinite(cubes[0]).all()
+    _assert_packs_equal(cubes, grid, bvec)
+
+
+@pytest.mark.parametrize("bvec", [False, True])
+@pytest.mark.parametrize("grid_name", ["canonical", "ragged"])
+def test_pack_kernel_converts_float64_as_plain(cuda, grid_name, bvec):
+    """float64 cubes are rounded to float32 as the plain version's .to
+    rounds them, before the gradient."""
+    grid = PACK_GRIDS[grid_name]
+    _assert_packs_equal(_pack_fields(cuda, grid, torch.float64), grid, bvec)
+
+
+def test_prepare_trace_inputs_launches_the_pack_kernel_once(cuda):
+    grid = PACK_GRIDS["odd"]
+    cubes = _pack_fields(cuda, grid)
+    for bvec in (None, tuple(cubes[4:])):
+        launches = pack_trace_inputs.launches
+        tcube, scube = prepare_trace_inputs(*cubes[:4], grid, bvec)
+        assert pack_trace_inputs.launches == launches + 1
+        assert tcube.device.type == "cuda" and scube.shape[3] == (
+            4 if bvec is None else 8)
+
+
+def test_pack_wrapper_refuses_mixed_devices(cuda):
+    grid = PACK_GRIDS["odd"]
+    cubes = _pack_fields(cuda, grid)
+    with pytest.raises(ValueError, match="is on"):
+        pack_trace_inputs(cubes[0], cubes[1].cpu(), *cubes[2:4], grid)
+
+
+def test_canonical_trace_records_do_not_depend_on_the_pack(cuda):
+    """The canonical trace (256^2 rays x 5000 steps x 128^3 at 75 MHz,
+    eight segments) gives the same records, bit for bit, from the
+    kernel's cubes as from the plain version's."""
+    from raytracinggrff_tpu_torch.harness import make_cube, make_rays
+    grid, wpe, ne = make_cube(128, 75e6)
+    t = [torch.as_tensor(a, device=cuda) for a in (
+        wpe, ne, np.full_like(ne, 1.4e6), np.ones_like(ne))]
+    start, kdir = make_rays(256)
+    traces = []
+    for pack in (pack_trace_inputs, pack_trace_inputs_plain):
+        tcube, scube = pack(*t, grid)
+        state = initial_state(tcube, grid, 75e6, start, kdir)
+        traces.append(torch.cat(list(run_segments(
+            tcube, scube, state, grid, 6e-3, 5000, 10))))
+    assert traces[0].shape == (500, 8, 65536)
+    assert torch.equal(traces[0].view(torch.int32),
+                       traces[1].view(torch.int32))
 
 
 # The transfer folds against their plain versions on the card. Both run the

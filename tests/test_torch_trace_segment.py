@@ -17,7 +17,8 @@ from raytracinggrff_tpu.sampler import (cos_theta_signed,
                                         sample_model_with_rays)
 from raytracinggrff_tpu_torch import tracer
 from raytracinggrff_tpu_torch.grids import UniformGrid
-from raytracinggrff_tpu_torch.ops.trace_segment import (trace_segment,
+from raytracinggrff_tpu_torch.ops.trace_segment import (pack_trace_inputs,
+                                                        trace_segment,
                                                         trace_segment_plain)
 from raytracinggrff_tpu_torch.tracer_segments import (prepare_trace_inputs,
                                                       segment_plan,
@@ -286,6 +287,91 @@ def test_wrapper_dispatches_cpu_to_plain_and_checks_inputs():
         trace_segment(tcube, scube, state[:6].contiguous(), *args[3:])
     with pytest.raises(ValueError, match=">= 1"):
         trace_segment(*args[:5], 0, 10, 2)
+
+
+# grids of the trace-input tests: a cube, a non-cubic grid with distinct
+# steps, and an axis of two nodes
+PACK_GRIDS = {
+    "cube": UniformGrid(-2.0, -2.0, -2.0, 0.5, 0.5, 0.5, 9, 9, 9),
+    "odd": UniformGrid(-1.0, 0.5, 2.0, 0.31, 0.17, 0.023, 7, 5, 3),
+    "axis_of_two": UniformGrid(0.0, 0.0, 0.0, 0.1, 0.2, 0.3, 6, 2, 11)}
+
+
+def _pack_fields(shape, dtype, seed=0):
+    """omega_pe, ne, te, b and three B components, random, with a 0, an
+    inf and a NaN in omega_pe."""
+    rng = np.random.default_rng(seed)
+    cubes = [torch.as_tensor(rng.uniform(0.5, 2.0, shape) * scale, dtype=dtype)
+             for scale in (3e8, 1e8, 1e6, 10.0, 5.0, -3.0, 1.0)]
+    cubes[0].view(-1)[:3] = torch.tensor([0.0, np.inf, np.nan], dtype=dtype)
+    return cubes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("channels", [4, 8])
+@pytest.mark.parametrize("grid_name", sorted(PACK_GRIDS))
+def test_pack_trace_inputs_runs_the_plain_stack_on_the_cpu(grid_name,
+                                                           channels, dtype):
+    """On CPU tensors pack_trace_inputs (and prepare_trace_inputs through
+    it) launches nothing and gives the cubes that prepare_trace_inputs'
+    torch ops always made: omega_pe and its np.gradient-style derivatives,
+    and [ne, te, b, 0] or [ne, te, b, Bx, By, Bz, 0, 0], float32,
+    contiguous, channels last."""
+    grid = PACK_GRIDS[grid_name]
+    cubes = _pack_fields(grid.shape, dtype)
+    bvec = tuple(cubes[4:]) if channels == 8 else None
+    launches = pack_trace_inputs.launches
+    tcube, scube = pack_trace_inputs(*cubes[:4], grid, bvec)
+    assert pack_trace_inputs.launches == launches
+    wpe = cubes[0].to(torch.float32)
+    want_t = torch.stack([wpe, *tracer.gradient_cubes(wpe, grid)], dim=-1)
+    zero = torch.zeros(grid.shape)
+    given = cubes[1:4] if channels == 4 else cubes[1:]
+    want_s = torch.stack([c.to(torch.float32) for c in given]
+                         + [zero] * (channels - len(given)), dim=-1)
+    for got, want in ((tcube, want_t), (scube, want_s)):
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert tcube.shape == (*grid.shape, 4)
+    assert scube.shape == (*grid.shape, channels)
+    assert torch.isinf(tcube[0, 0, 0, 3]) and torch.isnan(tcube[0, 0, 2, 1])
+    for got, want in zip(prepare_trace_inputs(*cubes[:4], grid, bvec),
+                         (tcube, scube)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+PACK_FAULTS = {
+    "omega_pe_shape": ("cube shape", lambda c, g: ([c[0][:, :-1]] + c[1:], g)),
+    "ne_shape": ("cube shape", lambda c, g: (c[:1] + [c[1][:-1]] + c[2:], g)),
+    "b_shape": ("cube shape", lambda c, g: (
+        c[:3] + [c[3].permute(2, 1, 0)] + c[4:], g)),
+    "bvec_shape": ("cube shape", lambda c, g: (c[:6] + [c[6][..., 1:]], g)),
+    "bvec_of_two": ("3 cubes", lambda c, g: (c[:6], g)),
+    "x_of_one": (">= 2 nodes", lambda c, g: (
+        [x[:1] for x in c], UniformGrid(0, 0, 0, 0.1, 0.1, 0.1, 1, 4, 5))),
+    "y_of_one": (">= 2 nodes", lambda c, g: (
+        [x[:, :1] for x in c], UniformGrid(0, 0, 0, 0.1, 0.1, 0.1, 3, 1, 5))),
+    "z_of_one": (">= 2 nodes", lambda c, g: (
+        [x[..., :1] for x in c], UniformGrid(0, 0, 0, 0.1, 0.1, 0.1, 3, 4, 1))),
+    "mixed_devices": ("is on", lambda c, g: (
+        c[:2] + [c[2].to("meta")] + c[3:], g)),
+    "no_kernel_device": ("no trace-input kernel", lambda c, g: (
+        [x.to("meta") for x in c], g)),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(PACK_FAULTS))
+def test_pack_trace_inputs_refuses_cubes_it_cannot_pack(fault):
+    """A cube whose shape is not the grid's, a B vector of other than three
+    cubes, an axis of fewer than two nodes, cubes on two devices or on a
+    device with no kernel each raise ValueError before anything runs."""
+    grid = UniformGrid(0, 0, 0, 0.1, 0.1, 0.1, 3, 4, 5)
+    match, make = PACK_FAULTS[fault]
+    cubes, grid = make(_pack_fields(grid.shape, torch.float32), grid)
+    launches = pack_trace_inputs.launches
+    with pytest.raises(ValueError, match=match):
+        pack_trace_inputs(*cubes[:4], grid, tuple(cubes[4:]))
+    assert pack_trace_inputs.launches == launches
 
 
 def test_exact_build_only_adds_fmad_false_and_no_build_loosens_ieee():
