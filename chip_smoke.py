@@ -125,13 +125,25 @@ Phases:
      and 576^3 (the sweep's largest), with 4 and 8 sample channels: trace
      and sample cubes equal bit for bit, one launch a call, each timed
      beside its bound (PACK_BYTES a voxel at PEAK_BYTES_S)
+ 21. compare_los_raytracing's 800 MHz high-band preset
+     (HIGHBAND_PRESETS[800e6], as the benchmark's compare_800mhz cell runs
+     it): 128^2 rays x 12,000 steps at stride 5 on the unrounded 520^3
+     cube, and the LOS map at 128^2 x 1,100 voxels; its launch counts, and
+     each of its kernels held to its plain version on the inputs the run
+     gave it and timed beside its bound: the resample of five variables
+     onto 520^3 (not a whole number of 16-plane slabs; every cube within
+     RESAMPLE_ULP_BAR), the trace's first segment at dt 4e-4 (>= 99% of
+     rays within ROW_TOL), the sampler at 18,022,400 points (every
+     variable within RESAMPLE_ULP_BAR) and the voxel fold of 1,100 voxels
+     x 16,384 pixels x 1 frequency (hold_fold)
 Each path that traces rays runs with the launch counts set to 0 just
 before it and checks them against its segment count just after: the
 trace kernel's and the record fold's, one launch each a segment; a LOS
 chain's synthetic_ff launches the voxel fold once, and a map the
-trace-input kernel once (phases 4 and 10). Every prepare_cubes
-(phases 4, 7, 10, 16, 17 and 18) launches the resample once for its five
-variables, resample_mas_los (phases 6 and 18) the spherical sampler once,
+trace-input kernel once (phases 4, 10 and 21). Every prepare_cubes
+(phases 4, 7, 10, 16, 17, 18 and 21) launches the resample once for its
+five variables, resample_mas_los (phases 6, 18 and 21) the spherical
+sampler once,
 bench's LOS sampling (phase 11) the ds scan once a sampling, and get_mw
 in DEM mode the DEM scan once.
 The last lines are one JSON object listing the kernels, the card's name
@@ -1518,7 +1530,7 @@ def fold_agreement(out, ref):
     return rel, absd, (int(same.sum()), same.numel()), equal
 
 
-def hold_fold(tag, what, out, ref, mechanism, times, bound):
+def hold_fold(tag, what, out, ref, mechanism, times, bound, phase="17"):
     """Print and hold one fold against its plain version: every evanescent
     set equal, and the carries equal (torch.equal) without gyroresonance
     (mechanism bit 2), or flux max rel 1e-4 with it. times: (kernel ms by
@@ -1527,7 +1539,7 @@ def hold_fold(tag, what, out, ref, mechanism, times, bound):
     rel, absd, (same, total), equal = fold_agreement(out, ref)
     ms, dev_ms, plain_ms = times
     bound_ms, bound_by, n_valid = bound
-    say(f"[17] {what} ({n_valid} valid): kernel vs plain, carries equal "
+    say(f"[{phase}] {what} ({n_valid} valid): kernel vs plain, carries equal "
         f"{equal}, flux max rel {rel:.3g}, max |diff| {absd:.3g} SFU; "
         f"evanescent sets equal on {same} of {total} entries; kernel "
         f"{ms:.4f} ms ({dev_ms:.4f} ms on the device alone), plain "
@@ -2233,6 +2245,157 @@ def phase_scans(out, device="cuda", n_pix=256):
         f"frequencies)", times, bound(DEM_FLOPS * 2 * nz * nf, nbytes), 0.0)
 
 
+def phase_highband(out, tmp, freq=800e6, n_pix=128, x_fov=1.44,
+                   device="cuda"):
+    """Phase 21: compare_frequency at HIGHBAND_PRESETS[freq] (the CLI's
+    --highband, the benchmark's compare_800mhz unit) from a synthetic MAS
+    model, with the launch counts set to 0 just before it and checked
+    just after: trace and record-fold launches = segments, one trace-input
+    launch, one resample, one sampler launch, one voxel fold; both maps
+    finite, both .npz written. Then each kernel of the run is held to its plain version on
+    the device inputs the run gave it, and timed beside its bound: the
+    resample's five cubes (hold_floats, RESAMPLE_ULP_BAR), the trace's
+    first segment (hold_segment, >= 99% of rays), the sampler's five
+    variables (hold_floats) and the voxel fold (hold_fold). Fills
+    out["highband"] with the kernels' entries."""
+    from raytracinggrff_tpu_torch.cli.compare_los_raytracing import (
+        HIGHBAND_PRESETS, compare_frequency)
+    from raytracinggrff_tpu_torch.mas.model import synthetic_mas_model
+    from raytracinggrff_tpu_torch.ops import resample
+    from raytracinggrff_tpu_torch.ops import transfer_fold as tf
+    from raytracinggrff_tpu_torch.ops.trace_segment import (
+        pack_trace_inputs, trace_segment, trace_segment_plain)
+    from raytracinggrff_tpu_torch.pipeline import RayEmissionConfig
+    p = HIGHBAND_PRESETS[freq]
+    n = p["grid_n"]
+    cfg = RayEmissionConfig(n_steps=p["n_steps"],
+                            record_stride=p["record_stride"])
+    model = synthetic_mas_model(Path(tmp) / "corona_hb")
+    timings = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with captured(resample, "resample_cubes") as scenes, \
+            captured(resample, "sample_sph_many") as samples, \
+            captured_voxel_folds() as folds, \
+            first_segments(keep_cubes=True) as firsts:
+        t0 = time.perf_counter()
+        ray, los = compare_frequency(model, freq, n_pix=n_pix, x_fov=x_fov,
+                                     phi0_offset=0.0, highband=True,
+                                     ray_npz=Path(tmp) / "ray.npz",
+                                     los_npz=Path(tmp) / "los.npz",
+                                     verbose=False, device=device,
+                                     timings=timings)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = trace_segment.launches
+    assert launches == n_segments(cfg) == timings["segments"], launches
+    assert pack_trace_inputs.launches == 1, pack_trace_inputs.launches
+    check_folds("21", "records", launches, device)
+    check_folds("21", "voxels", 1, device)
+    check_kernel("21", "resample", "cube", 1, device)
+    check_kernel("21", "resample", "sph", 1, device)
+    for res in (ray, los):
+        for key in ("emission_cube", "emission_polVI_cube"):
+            assert np.all(np.isfinite(res[key])), key
+    disk = disk_mask(n_pix, x_fov)
+    a, b = ray["emission_cube"][:, :, 0], los["emission_cube"][:, :, 0]
+    say(f"[21] {freq / 1e6:.0f} MHz preset ({n_pix}^2 rays x "
+        f"{p['n_steps']} steps, stride {p['record_stride']}, dt {p['dt']}, "
+        f"{n}^3 cube; LOS {n_pix}^2 x {p['n_z']}): {wall:.3f} s for both "
+        f"maps; ray {timings['ray']:.4f} s (resample "
+        f"{timings['resample']:.4f}, trace {timings['trace']:.4f}, transfer "
+        f"{timings['transfer']:.4f}, finish {timings['finish']:.4f}, write "
+        f"{timings['write']:.4f}), LOS {timings['los']:.4f} s (sample "
+        f"{timings['los_sample']:.4f}, download {timings['los_download']:.4f}"
+        f", upload {timings['los_upload']:.4f}, transfer "
+        f"{timings['los_transfer']:.4f}); peak device memory {peak} bytes; "
+        f"trace and record-fold launches {launches} = segments, one "
+        f"trace-input launch, one resample, one sampler launch, one voxel "
+        f"fold; on-disk median T_b ray {np.median(a[disk]):.4g} K, LOS "
+        f"{np.median(b[disk]):.4g} K")
+    del ray, los
+    entries = {}
+
+    (variables, xs, ys, zs, phi0), kw = scenes[0][0][:5], scenes[0][1]
+    fill = kw.get("fill_nan", 0.0)
+    worst = 0.0
+    k = resample.resample_cubes(variables, xs, ys, zs, phi0, fill_nan=fill)
+    for v, (name, cube) in enumerate(zip(MAS_VARIABLES, k)):
+        want = resample.resample_cube_plain(*variables[v], xs, ys, zs, phi0,
+                                            fill)
+        worst = max(worst, hold_floats(
+            "21", f"resample of {name} onto {n}^3 at extent "
+            f"{p['grid_extent']} ({n % 16} planes past the last whole "
+            f"16-plane slab), fill {fill}", cube, want, RESAMPLE_ULP_BAR))
+        del want
+    del k
+    times = time_kernel(
+        lambda: resample.resample_cubes(variables, xs, ys, zs, phi0,
+                                        fill_nan=fill),
+        lambda: resample.resample_cubes_plain(variables, xs, ys, zs, phi0,
+                                              fill), reps=5)
+    entries["resample_cube"] = kernel_entry(
+        "21", f"resample, one launch of {len(variables)} variables onto "
+        f"{n}^3", times, scene_bound([resample_bound(a, n)
+                                      for a in variables]), worst)
+    del scenes
+    torch.cuda.empty_cache()
+
+    args = firsts[0]
+    del firsts
+    rec_k, rows = hold_segment("21", f"first segment at dt {p['dt']}",
+                               args, 0.99)
+    times = time_kernel(lambda: trace_segment(*args),
+                        lambda: trace_segment_plain(*args), reps=5)
+    entries["trace_segment"] = kernel_entry(
+        "21", f"trace segment ({args[2].shape[1]} rays, {args[5]} + "
+        f"{args[7] - 1} x {args[6]} steps, {n}^3)", times,
+        segment_bound_ms(args[0], args[1], args[2], rec_k, args[5],
+                         args[6]), float(max(rows)))
+    del args, rec_k
+    torch.cuda.empty_cache()
+
+    (variables, *queries), _ = samples[0]
+    del samples
+    points = queries[0].numel()
+    worst = 0.0
+    k = resample.sample_sph_many(variables, *queries)
+    want = resample.sample_sph_many_plain(variables, *queries)
+    for name, got, ref in zip(MAS_VARIABLES, k, want):
+        worst = max(worst, hold_floats(
+            "21", f"sampler, {name} at {points} points", got, ref,
+            RESAMPLE_ULP_BAR))
+    del k, want
+    times = time_kernel(lambda: resample.sample_sph_many(variables,
+                                                         *queries),
+                        lambda: resample.sample_sph_many_plain(variables,
+                                                               *queries))
+    entries["sample_sph"] = kernel_entry(
+        "21", f"sampler, one launch of {len(variables)} variables at "
+        f"{points} points", times, sample_bound(variables, points), worst)
+    del variables, queries
+    torch.cuda.empty_cache()
+
+    (args, kw), = folds
+    del folds
+    res, ref, times = time_fold(lambda: tf.fold_voxels(*args, **kw),
+                                lambda: tf.fold_voxels_plain(*args, **kw))
+    bound = fold_voxels_bound(*args, **kw)
+    ds, nf, mechanism = args[0], args[5].shape[0], args[11]
+    _, absd = hold_fold("21", f"voxel fold ({ds.shape[0]} voxels x "
+                        f"{ds.shape[1]} pixels x {nf} frequency, mechanism "
+                        f"{mechanism})", res, ref, mechanism, times, bound,
+                        phase="21")
+    entries["fold_voxels"] = dict(ms=times[1], wrapper_ms=times[0],
+                                  plain_ms=times[2], bound_ms=bound[0],
+                                  bound_by=bound[1], max_abs_err=absd)
+    del args, kw, res, ref
+    torch.cuda.empty_cache()
+    out["highband"] = dict(wall=wall, peak_bytes=peak, launches=launches,
+                           kernels=entries)
+
+
 def dem_case(nz=200, nt=50, nf=100, mech=1, seed=5):
     """get_mw's arguments (lparms, rparms, parms, t, dem) for a DEM-mode
     line of sight, the case of tests/test_torch_get_mw.py at nz voxels, nt
@@ -2301,6 +2464,8 @@ def main():
         phase_scans(out)
         with tempfile.TemporaryDirectory() as tmp:
             phase_counts(tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_highband(out, tmp)
     say(f"total {time.perf_counter() - t_all:.1f} s")
     fold, vfold = out["fold"], out["voxel_fold"]
     kernels = [

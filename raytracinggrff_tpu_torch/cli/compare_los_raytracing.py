@@ -12,6 +12,7 @@ rgrff-compare-los-raytracing plus --device (default cuda).
 from __future__ import annotations
 
 import argparse
+import contextlib
 from pathlib import Path
 
 import numpy as np
@@ -19,6 +20,7 @@ import numpy as np
 from ..constants import R_SUN_M
 from ..pipeline import (RayEmissionConfig, resample_mas_los,
                         run_ray_tracing_emission, synthetic_ff)
+from ..utils import profiling
 
 
 def frequency_scaled_params(freq_hz, ref_freq_hz=100e6, base_dt=6e-3,
@@ -46,6 +48,11 @@ HIGHBAND_PRESETS = {
     800e6: dict(grid_n=520, grid_extent=1.45, z_observer=1.44, dt=0.4e-3,
                 n_steps=12000, record_stride=5, dz0=0.9e-4, n_z=1100),
 }
+# the keys of a preset that compare_frequency takes, and the one it may
+# add: the trace's records a segment (RayEmissionConfig's default
+# otherwise), which changes no record
+PRESET_KEYS = frozenset(HIGHBAND_PRESETS[800e6])
+PRESET_OPTIONAL = frozenset({"seg_records"})
 
 
 def apply_plot_beam(map_in, freq_hz, beam_factor, x_coords_m, y_coords_m,
@@ -101,32 +108,57 @@ def plot_compare_2x3(ray_maps, los_maps, freqs_hz, x_coords_m, y_coords_m,
 def compare_frequency(model_path, freq, n_pix=128, x_fov=2.8, grid_n=256,
                       grid_extent=4.0, z_observer=4.0, phi0_offset=0.0,
                       highband=False, ray_npz=None, los_npz=None,
-                      verbose=True, device="cuda", timings=None):
+                      verbose=True, device="cuda", timings=None,
+                      preset=None):
     """Both maps at one frequency: the ray-traced map at the
-    frequency-scaled parameters (or the high-band preset) and the
-    straight-LOS map at the matching n_z and dz0. Returns (ray result,
-    LOS emission result); the .npz paths are written when given, and
-    `timings` receives the ray-traced pipeline's stage seconds."""
-    if highband:
+    frequency-scaled parameters on the grid_n^3 cube of grid_extent with
+    the observer at z_observer (or the high-band preset) and the
+    straight-LOS map at the matching n_z and dz0. `preset`, a dict of
+    PRESET_KEYS (and optionally PRESET_OPTIONAL), is used in place of
+    either. Returns (ray result, LOS emission result); the .npz paths are
+    written when given.
+
+    A dict passed as `timings` makes the call record both maps in one
+    recording (utils/profiling.recording) and receives the seconds of
+    their spans, summed by name: "ray" and "los" around each map on the
+    host clock, the LOS chain's spans (resample_mas_los's and
+    synthetic_ff's, each named "los_..."), while torch.profiler records
+    the LOS chain's counts, and the ray-traced map's own timings
+    (run_ray_tracing_emission's), as a map alone gives them."""
+    if preset is not None:
+        p = dict(preset)
+        if not PRESET_KEYS <= set(p) <= PRESET_KEYS | PRESET_OPTIONAL:
+            raise ValueError(
+                f"a preset holds {sorted(PRESET_KEYS)} and may hold "
+                f"{sorted(PRESET_OPTIONAL)}; this one lacks "
+                f"{sorted(PRESET_KEYS - set(p))} and adds "
+                f"{sorted(set(p) - PRESET_KEYS - PRESET_OPTIONAL)}")
+    elif highband:
         p = dict(HIGHBAND_PRESETS[freq])
-        grid_n, grid_extent = p.pop("grid_n"), p.pop("grid_extent")
-        z_observer = p.pop("z_observer")
     else:
-        p = frequency_scaled_params(freq)
+        p = dict(frequency_scaled_params(freq), grid_n=grid_n,
+                 grid_extent=grid_extent, z_observer=z_observer)
     dz0, n_z = p.pop("dz0"), p.pop("n_z")
-    cfg = RayEmissionConfig(
-        n_pix=n_pix, x_fov=x_fov, freq_hz=freq, grid_n=grid_n,
-        grid_extent=grid_extent, z_observer=z_observer,
-        phi0_offset=phi0_offset, **p)
-    ray = run_ray_tracing_emission(model_path=model_path, config=cfg,
-                                   out_path=ray_npz, verbose=verbose,
-                                   device=device, timings=timings)
-    los = resample_mas_los(model_path, n_pix=n_pix,
-                           x_range=(-x_fov, x_fov), y_range=(-x_fov, x_fov),
-                           n_z=n_z, dz0=dz0, phi0_offset=phi0_offset,
-                           verbose=verbose, device=device)
-    emission = synthetic_ff(los, freq, 1, 0.0, out_path=los_npz,
-                            verbose=verbose, device=device)
+    cfg = RayEmissionConfig(n_pix=n_pix, x_fov=x_fov, freq_hz=freq,
+                            phi0_offset=phi0_offset, **p)
+    recorder = (profiling.recording(device) if timings is not None
+                else contextlib.nullcontext())
+    ray_timings = {} if timings is not None else None
+    with recorder as rec:
+        with profiling.span("ray"):
+            ray = run_ray_tracing_emission(
+                model_path=model_path, config=cfg, out_path=ray_npz,
+                verbose=verbose, device=device, timings=ray_timings)
+        with profiling.span("los"):
+            los = resample_mas_los(
+                model_path, n_pix=n_pix, x_range=(-x_fov, x_fov),
+                y_range=(-x_fov, x_fov), n_z=n_z, dz0=dz0,
+                phi0_offset=phi0_offset, verbose=verbose, device=device)
+            emission = synthetic_ff(los, freq, 1, 0.0, out_path=los_npz,
+                                    verbose=verbose, device=device)
+    if rec is not None:
+        timings.update(rec.totals(), **rec.counters())
+        timings.update(ray_timings)
     return ray, emission
 
 

@@ -486,14 +486,26 @@ def resample_mas_los(model_path, n_pix=128, x_range=(-1.44, 1.44),
     coordinate block is built on the device. Returns the LOS_data dict of
     float64 numpy: Ne_LOS/Te_LOS/B_LOS (NaN where r < 1), ds_LOS in cm,
     x/y/z_coords in meters.
+
+    Spans (utils/profiling), named apart from the ray-traced map's so that
+    a recording around both keeps each map's own: "los_read" (the HDF4
+    reads) and "los_scene_upload" (the scene's copy to the device) on the
+    host clock; "los_sample" (the coordinate block, the one sampler
+    launch, the masks and casts) on the device clock; "los_download" (the
+    samples' copy to the host and the host-built ds) and, with out_path,
+    "los_write" on the host clock.
     """
     if variable_spacing_z:
         z_rsun, dz = variable_z_grid(n_z, dz0)
     else:
         z_rsun, dz = linear_z_grid(n_z, z_range or (0.0, 4.0))
 
-    model = MASModel(model_path, timestep=timestep)
-    temp_var = model.temperature_variable()
+    with profiling.span("los_read"):
+        model = MASModel(model_path, timestep=timestep)
+        names = ("rho", model.temperature_variable(), "br", "bt", "bp")
+        variables = [model[v] for v in names]
+    with profiling.span("los_scene_upload"):
+        arrays = scene_arrays(variables, device)
 
     xs = np.linspace(x_range[0], x_range[1], n_pix)
     ys = np.linspace(y_range[0], y_range[1], n_pix)
@@ -505,32 +517,33 @@ def resample_mas_los(model_path, n_pix=128, x_range=(-1.44, 1.44),
         -np.sqrt(np.maximum(rho_sq - 1.0, 0.0)) - 1e-6 / R_SUN_M,
     )
 
-    f32, f64 = torch.float32, torch.float64
-    Z = (torch.as_tensor(z_start, dtype=f64, device=device)[:, :, None]
-         + torch.as_tensor(z_rsun, dtype=f64, device=device)[None, None, :]
-         ).to(f32)
-    Xb = torch.as_tensor(X, dtype=f32, device=device)[:, :, None].expand(
-        Z.shape)
-    Yb = torch.as_tensor(Y, dtype=f32, device=device)[:, :, None].expand(
-        Z.shape)
-    r, colat, lon = image_xyz_to_mas_sph(Xb, Yb, Z, phi0_offset)
-    valid = r >= 0.9999999
-
     if verbose:
         print(f"Sampling LOS grid {n_pix}x{n_pix}x{n_z} on {device}...")
-    names = ("rho", temp_var, "br", "bt", "bp")
-    samples = resample.sample_sph_many(
-        scene_arrays([model[v] for v in names], device),
-        *(q.contiguous() for q in torch.broadcast_tensors(r, colat, lon)))
+    f32, f64 = torch.float32, torch.float64
+    with profiling.span("los_sample", "device"):
+        Z = (torch.as_tensor(z_start, dtype=f64, device=device)[:, :, None]
+             + torch.as_tensor(z_rsun, dtype=f64, device=device)[None, None,
+                                                                  :]
+             ).to(f32)
+        Xb = torch.as_tensor(X, dtype=f32, device=device)[:, :, None].expand(
+            Z.shape)
+        Yb = torch.as_tensor(Y, dtype=f32, device=device)[:, :, None].expand(
+            Z.shape)
+        r, colat, lon = image_xyz_to_mas_sph(Xb, Yb, Z, phi0_offset)
+        valid = r >= 0.9999999
+        samples = resample.sample_sph_many(
+            arrays,
+            *(q.contiguous() for q in torch.broadcast_tensors(r, colat, lon)))
 
-    def sample(v):
-        return torch.where(valid, v, math.nan).to(f64)
+        def sample(v):
+            return torch.where(valid, v, math.nan).to(f64)
 
-    ne = sample(samples[0]).cpu().numpy()
-    te = sample(samples[1]).cpu().numpy()
-    b = torch.sqrt(sum(sample(v) ** 2 for v in samples[2:]))
-    b = b.cpu().numpy()
-    ds = np.broadcast_to(dz[None, None, :] * R_SUN_CM, ne.shape).copy()
+        ne = sample(samples[0])
+        te = sample(samples[1])
+        b = torch.sqrt(sum(sample(v) ** 2 for v in samples[2:]))
+    with profiling.span("los_download"):
+        ne, te, b = (t.cpu().numpy() for t in (ne, te, b))
+        ds = np.broadcast_to(dz[None, None, :] * R_SUN_CM, ne.shape).copy()
 
     if (np.isfinite(ne).sum() == 0 and np.isfinite(te).sum() == 0
             and np.isfinite(b).sum() == 0):
@@ -544,7 +557,8 @@ def resample_mas_los(model_path, n_pix=128, x_range=(-1.44, 1.44),
         "z_coords": z_rsun * R_SUN_M,
     }
     if out_path:
-        npz.savez_compressed(out_path, **result)
+        with profiling.span("los_write"):
+            npz.savez_compressed(out_path, **result)
         if verbose:
             print(f"LOS data saved to {out_path}")
     return result
@@ -559,6 +573,16 @@ def synthetic_ff(los_data, freq0, nfreq, freq_log_step, out_path=None,
     and te NaN -> 1e4 K; a voxel is valid where ne, te and b are all
     finite. Returns the emission dict (synthetic_FF_map_single_thread.py:
     108-312); out_path gets ".npz" appended unless it ends with it.
+
+    Spans (utils/profiling): "los_upload" (the host-built validity and the
+    voxel arrays' copies to the device) on the host clock, "los_transfer"
+    (get_mw_slice, one voxel-fold launch) and "los_finish" (T_b and V/I
+    with the fluxes' copy to the host) on the device clock, and with
+    out_path "los_write" on the host clock. While counting
+    (profiling.counting) it adds, in a device span of its own
+    ("los_count", outside "los_transfer"), the voxels flagged valid
+    ("los_flagged") and those the fold takes ("los_taken": flagged, with
+    finite float32 ne, te, b and ds, ds > 0), which the data decide.
     """
     if isinstance(los_data, (str, Path)):
         los_data = dict(np.load(los_data))
@@ -571,7 +595,6 @@ def synthetic_ff(los_data, freq0, nfreq, freq_log_step, out_path=None,
 
     n_pix = ne.shape[0]
     n_z = ne.shape[2]
-    valid = ~(np.isnan(ne) | np.isnan(te) | np.isnan(b))
 
     pixel_size_cm = (x_coords[1] - x_coords[0]) / R_SUN_M * R_SUN_CM
     pixel_area_cm2 = pixel_size_cm * pixel_size_cm
@@ -584,16 +607,30 @@ def synthetic_ff(los_data, freq0, nfreq, freq_log_step, out_path=None,
     if verbose:
         print(f"GRFF transfer: {n_pix}x{n_pix} pixels, {n_z} voxels, "
               f"{nfreq} freqs on {device}...")
-    res = get_mw_slice(
-        to_zpix(ds), to_zpix(te, nan=1e4), to_zpix(ne), to_zpix(b),
-        to_zpix(valid) > 0.5, freq0, nfreq, freq_log_step, pixel_area_cm2,
-        mechanism=mechanism, device=device)
+    with profiling.span("los_upload"):
+        valid = ~(np.isnan(ne) | np.isnan(te) | np.isnan(b))
+        voxels = (to_zpix(ds), to_zpix(te, nan=1e4), to_zpix(ne), to_zpix(b),
+                  to_zpix(valid) > 0.5)
+    if profiling.counting():
+        with profiling.span("los_count", "device"):
+            *fields, flagged = voxels
+            ds32, *rest = (a.to(torch.float32) for a in fields)
+            taken = flagged & torch.isfinite(ds32) & (ds32 > 0)
+            for a in rest:
+                taken &= torch.isfinite(a)
+            profiling.count("los_flagged", flagged.sum())
+            profiling.count("los_taken", taken.sum())
+    with profiling.span("los_transfer", "device"):
+        res = get_mw_slice(*voxels, freq0, nfreq, freq_log_step,
+                           pixel_area_cm2, mechanism=mechanism, device=device)
 
-    intensity = (res.flux_o + res.flux_x).cpu().numpy().astype(np.float64)
-    pol = ((res.flux_o - res.flux_x).cpu().numpy().astype(np.float64)
-           / (intensity + 1e-30))
-    tb = tb_from_sfu(intensity, np.asarray(frequencies_hz)[None, :],
-                     pixel_area_cm2)
+    with profiling.span("los_finish", "device"):
+        intensity = (res.flux_o + res.flux_x).cpu().numpy().astype(
+            np.float64)
+        pol = ((res.flux_o - res.flux_x).cpu().numpy().astype(np.float64)
+               / (intensity + 1e-30))
+        tb = tb_from_sfu(intensity, np.asarray(frequencies_hz)[None, :],
+                         pixel_area_cm2)
     result = {
         "emission_cube": tb.reshape(n_pix, n_pix, nfreq),
         "emission_polVI_cube": pol.reshape(n_pix, n_pix, nfreq),
@@ -601,7 +638,8 @@ def synthetic_ff(los_data, freq0, nfreq, freq_log_step, out_path=None,
         "x_coords": x_coords, "y_coords": y_coords,
     }
     if out_path:
-        npz.savez_compressed(out_path, **result)
+        with profiling.span("los_write"):
+            npz.savez_compressed(out_path, **result)
         if verbose:
             print(f"Saved {out_path}")
     return result

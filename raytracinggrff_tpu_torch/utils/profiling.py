@@ -15,7 +15,10 @@ as its parent. A host span reads time.perf_counter. A device span, around
 queued device work, reads CUDA events on the current stream when the
 innermost recording's device is a CUDA device, read after one synchronize
 (Recorder.totals), so that asynchronous launches are charged to the span
-that queued them; otherwise it reads the host clock.
+that queued them; otherwise it reads the host clock. `count(name, value)`
+adds to a counter of the active recording and those it is nested in;
+callers take a count only where `counting()` says so, so that untraced
+work counts nothing.
 
 StageTimer keeps the JAX package's API; given a CUDA device it
 synchronizes that device at the end of each stage. device_trace records a
@@ -97,6 +100,7 @@ class Recorder:
         self.cuda = torch.device(device).type == "cuda"
         self.outer = outer
         self.spans = []
+        self.counts = {}
         self._open = outer._open if outer is not None else []
 
     def _mark(self, clock):
@@ -115,6 +119,12 @@ class Recorder:
         for s in self.spans:
             out[s.name] = out.get(s.name, 0.0) + s.seconds()
         return out
+
+    def counters(self):
+        """{counter name: its values summed}, each an int; a device
+        tensor's value is read here, which waits for the device."""
+        return {name: sum(int(v) for v in values)
+                for name, values in self.counts.items()}
 
 
 @contextlib.contextmanager
@@ -141,6 +151,23 @@ def span(name, clock="host"):
     if rec is None and not annotate:
         return _OFF
     return Span(name, clock, rec, annotate)
+
+
+def counting():
+    """Whether a count is to be taken: a recording is active and
+    torch.profiler records (as the maps' fold counts are taken). Untraced
+    work, and work outside a recording, counts nothing."""
+    return _ACTIVE.get() is not None and torch.autograd._profiler_enabled()
+
+
+def count(name, value):
+    """Add `value` (an int, or a one-element integer tensor, read when the
+    recording's counters are read) to counter `name` of the active
+    recording and of those it is nested in."""
+    rec = _ACTIVE.get()
+    while rec is not None:
+        rec.counts.setdefault(name, []).append(value)
+        rec = rec.outer
 
 
 class StageTimer:

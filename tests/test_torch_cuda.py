@@ -1260,3 +1260,61 @@ def test_scene_wrappers_refuse_what_the_kernels_do_not_take(cuda,
         los_scans.dem_scan(tau.transpose(1, 2).contiguous().transpose(1, 2),
                            tau, evan, m)
     assert (dict(resample.LAUNCHES), dict(los_scans.LAUNCHES)) == counts
+
+
+def test_highband_800mhz_maps_match_the_references(cuda, tmp_path):
+    """compare_los_raytracing's 800 MHz preset at 128^2 (the 520^3 cube,
+    12,000 steps at stride 5, the LOS map of 1,100 voxels) on the card:
+    both maps finite, and at 256 sampled pixels each equal to its plain
+    reference (benchmark/reference/map.py, benchmark/reference/los.py)
+    within the compare_800mhz cell's limits."""
+    import dataclasses
+    import json
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from benchmark.gen.mas import mas_arrays, write_mas_dir
+    from benchmark.reference.los import los_pixels
+    from benchmark.reference.map import map_pixels
+    from benchmark.yardstick.compare import map_gaps
+    from raytracinggrff_tpu_torch.cli.compare_los_raytracing import (
+        HIGHBAND_PRESETS, compare_frequency)
+    from raytracinggrff_tpu_torch.pipeline import RayEmissionConfig
+    config = json.loads((root / "benchmark/configs/highband_800mhz.json")
+                        .read_text())
+    limits = json.loads((root / "benchmark/traffic/compare_closed.json")
+                        .read_text())["check"]["limits"]
+    arrays, mesh = mas_arrays(config["scene"], 2 ** 31 + 5)
+    path = write_mas_dir(tmp_path / "corona", arrays, mesh,
+                         config["scene"]["timestep"])
+    preset = HIGHBAND_PRESETS[800e6]
+    ray, los = compare_frequency(str(path), 800e6, n_pix=128, x_fov=1.44,
+                                 phi0_offset=0.0, highband=True,
+                                 verbose=False, device="cuda")
+    for res in (ray, los):
+        for key in ("emission_cube", "emission_polVI_cube"):
+            assert res[key].shape == (128, 128, 1)
+            assert np.isfinite(res[key]).all(), key
+    pixels = np.sort(np.random.default_rng(11).choice(128 * 128, 256,
+                                                      replace=False))
+    run = dict(dataclasses.asdict(RayEmissionConfig()), n_pix=128,
+               x_fov=1.44, freq_hz=800e6, phi0_offset=0.0,
+               **{k: v for k, v in preset.items()
+                  if k not in ("dz0", "n_z")})
+    torch.cuda.empty_cache()
+    want = map_pixels(arrays, mesh, run, pixels, cuda)
+    got = [ray[k].reshape(-1, 1)[pixels]
+           for k in ("emission_cube", "emission_polVI_cube")]
+    gaps = map_gaps(got[0], want[0], got[1], want[1])
+    assert gaps["tb_gap"] <= limits["tb_gap"], gaps
+    assert gaps["vi_gap"] <= limits["vi_gap"], gaps
+    los_cfg = dict(config["los"], n_z=preset["n_z"], dz0=preset["dz0"])
+    want = los_pixels(arrays, mesh, run, los_cfg, pixels, cuda)
+    got = [los[k].reshape(-1, 1)[pixels]
+           for k in ("emission_cube", "emission_polVI_cube")]
+    gaps = map_gaps(got[0], want[0], got[1], want[1])
+    assert gaps["tb_gap"] <= limits["los_tb_gap"], gaps
+    assert gaps["vi_gap"] <= limits["los_vi_gap"], gaps
+    assert min(ray["emission_cube"].max(), los["emission_cube"].max()) > 1e5
